@@ -1,0 +1,20 @@
+"""Shared helpers for the device ops (counterpart of
+blazeseq_tpu/ops/common.py)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def length_mask(lengths: torch.Tensor, width: int,
+                col_offset=0) -> torch.Tensor:
+    """[n, width] bool mask of valid positions given per-record lengths.
+    `col_offset` shifts the position base: a batch that holds columns
+    [col_offset, col_offset + width) of longer records masks against the
+    records' true lengths."""
+    pos = torch.arange(width, dtype=torch.int64, device=lengths.device)
+    return (pos[None, :] + col_offset) < lengths[:, None].to(torch.int64)
