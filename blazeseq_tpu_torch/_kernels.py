@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources under ``csrc/`` have a plain C interface and no PyTorch headers.
-At first use they are compiled with ``nvcc`` into one shared library under
-``_build/<hash>/`` (the hash covers the sources and the flags, so an edited
-source rebuilds) and loaded with ctypes. Nothing is built at import time:
+At first use each is compiled with its own ``nvcc``, all started together,
+and the objects are linked into one shared library under ``_build/<hash>/``
+(the hash covers the sources and the flags, so an edited source rebuilds),
+which is loaded with ctypes. Nothing is built at import time:
 the CPU path never needs a compiler.
 
 Each entry point takes device pointers and the CUDA stream as ``c_void_p``
@@ -24,9 +25,9 @@ import tempfile
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("validate.cu", "uniform_qc.cu")
+SOURCES = ("validate.cu", "uniform_qc.cu", "nw.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "libblazeseq_kernels.so"
 
 _P = ctypes.c_void_p
@@ -43,6 +44,8 @@ _SIGNATURES = {
     "bs_uniform_qc": (_P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                       _P, _P, _P, _P, _P, _I, _P),
     "bs_uniform_qc_smem_bytes": (_I,),
+    # seq, lengths, ref, scores, scratch, B, Lq, Lr, stream
+    "bs_nw_scores": (_P, _P, _P, _P, _P, _LL, _I, _I, _P),
 }
 
 
@@ -74,6 +77,23 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> None:
+    """Run the commands concurrently; raise with the stderr of the first
+    that fails, after all have ended."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = None
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, err)
+    if failed is not None:
+        cmd, rc, err = failed
+        raise RuntimeError("nvcc failed (exit %d): %s\n%s"
+                           % (rc, " ".join(cmd), err))
+
+
 def build() -> str:
     """Compile the sources into ``_build/<hash>/`` unless already there;
     returns the library path. Raises with nvcc's stderr on failure."""
@@ -82,18 +102,19 @@ def build() -> str:
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    # build under a temporary name, then rename: a concurrent loader never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed (exit %d): %s\n%s" % (
-            proc.returncode, " ".join(cmd), proc.stderr))
-    os.replace(tmp, lib_path)
+    nvcc = find_nvcc()
+    # objects and library under temporary names, then a rename: a
+    # concurrent loader never sees a half-written library
+    work = tempfile.mkdtemp(dir=out_dir)
+    try:
+        objs = [os.path.join(work, s + ".o") for s in SOURCES]
+        _run_all([nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)]
+                 for s, o in zip(SOURCES, objs))
+        tmp = os.path.join(work, LIB_NAME)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, lib_path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib_path
 
 

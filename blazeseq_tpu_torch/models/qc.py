@@ -1,15 +1,24 @@
 """QCModel: streaming FastQC-style quality control of a FASTQ file
-(counterpart of blazeseq_tpu/models/qc.py, uniform-layout tier).
+(counterpart of blazeseq_tpu/models/qc.py: the uniform-layout tier and the
+host-parse path).
 
-`run_file_device(path)` maps the file, reads the record layout from its
-head, and sends rs-aligned raw byte chunks to the device through the
-overlapped feed (parallel/ingest.py). One pass per chunk proves the layout
-and computes every QC panel (ops/uniform_qc.py); the host adds the results
-in int64. Input outside that tier goes through `_host_consume`: the host
-parser builds padded batches, and the device runs validate + qc_stats on
-them (parallel/pipeline.py). That covers a chunk that fails the proof and
-everything after it, a trailing partial record, a file whose head is not
-uniform, and gzip input. The report is the same on either route.
+`run_file(path)` (and `run_reader` / `run_parser`) parses on the host into
+padded batches; the device runs validate + QC and, with `align_to`, the
+alignment kernel on each batch (parallel/pipeline.py), plus the adapter
+scan, the read hashes of the duplication panel and the per-position
+quality distribution when asked for. Device totals are flushed to the host
+int64 accumulator every 64 batches.
+
+`run_file_device(path)` covers core QC only. It maps the file, reads the
+record layout from its head, and sends rs-aligned raw byte chunks to the
+device through the overlapped feed (parallel/ingest.py). One pass per chunk
+proves the layout and computes every QC panel (ops/uniform_qc.py); the host
+adds the results in int64. Input outside that tier goes through
+`_host_consume`: the host parser builds padded batches, and the device runs
+validate + qc_stats on them (parallel/pipeline.py). That covers a chunk
+that fails the proof and everything after it, a trailing partial record, a
+file whose head is not uniform, and gzip input. The report is the same on
+either route.
 """
 
 from __future__ import annotations
@@ -25,7 +34,10 @@ from blazeseq_tpu.fastq.parser import FastqParser, ParserConfig
 from blazeseq_tpu.fastq.quality import QualitySchema, parse_schema
 from blazeseq_tpu.io.readers import MemoryReader, MmapReader, open_reader
 
-from ..ops.common import round_up
+from ..ops.adapter import adapter_content
+from ..ops.common import resolve_device, round_up
+from ..ops.dedup import (duplication_levels, overrepresented_sequences,
+                         read_hashes)
 from ..ops.stats import MAX_PHRED, QCAccumulator, zero_stats
 from ..ops.uniform_parse import detect_uniform_layout
 from ..ops.uniform_qc import uniform_qc
@@ -34,6 +46,8 @@ from ..parallel.pipeline import build_qc_align_step
 
 # padded read widths round up to this many columns
 _WIDTH_UNIT = 128
+# run_parser flushes its device-resident totals to the host this often
+_FLUSH_EVERY = 64
 
 
 @dataclass
@@ -46,6 +60,7 @@ class QCReport:
     base_counts: np.ndarray  # [5] A C G T other
     per_position_mean_quality: np.ndarray
     qual_hist: np.ndarray
+    nw_scores: Optional[np.ndarray] = None  # int32[reads] with align_to
     # FastQC-style per-read distribution panels
     length_hist: Optional[np.ndarray] = None  # [LEN_BINS] reads by length
     gc_hist: Optional[np.ndarray] = None  # [101] reads by GC%
@@ -54,15 +69,34 @@ class QCReport:
     # count
     per_pos_base_counts: Optional[np.ndarray] = None
     per_pos_count: Optional[np.ndarray] = None
+    # adapter panel: {adapter: merged AdapterStats} when adapters= was given
+    adapter_stats: Optional[dict] = None
+    # duplication panel (track_duplicates=True): levels[k] = distinct
+    # sequences seen exactly k times (k=10 means ">= 10"), over the first
+    # dup_track_limit reads
+    duplication_levels: Optional[np.ndarray] = None
+    frac_unique_reads: Optional[float] = None
+    # overrepresented sequences: [(prefix bytes <=50bp, count)] for sequences
+    # making up > 0.1% of the tracked sample, most frequent first
+    overrepresented: Optional[list] = None
+    # per-base quality boxplot panel (track_quartiles=True): [5, width]
+    # rows = p10, q1, median, q3, p90 per position, and the
+    # [MAX_PHRED, width] distribution they derive from
+    quality_quartiles: Optional[np.ndarray] = None
+    per_pos_qual_hist: Optional[np.ndarray] = None
 
     def __str__(self) -> str:
-        return ("QCReport(reads=%d, bases=%d, errors=%d, gc=%.4f, meanQ=%.2f)"
-                % (self.reads, self.bases, self.error_reads,
-                   self.gc_fraction, self.mean_quality))
+        s = ("QCReport(reads=%d, bases=%d, errors=%d, gc=%.4f, meanQ=%.2f"
+             % (self.reads, self.bases, self.error_reads, self.gc_fraction,
+                self.mean_quality))
+        if self.frac_unique_reads is not None:
+            s += ", unique=%.1f%%" % (100.0 * self.frac_unique_reads)
+        return s + ")"
 
     def to_dict(self) -> dict:
-        """JSON-serializable report: scalars, and histograms as lists with
-        their zero-count tails trimmed."""
+        """JSON-serializable report: scalars, histograms as lists with their
+        zero-count tails trimmed, and the adapter, duplication, quartile and
+        alignment panels when enabled."""
         def _trim(a):
             a = np.asarray(a)
             nz = np.flatnonzero(a)
@@ -91,17 +125,40 @@ class QCReport:
             d["per_pos_base_counts"] = [
                 row[:w].astype(int).tolist()
                 for row in np.asarray(self.per_pos_base_counts)]
+        if self.adapter_stats:
+            d["adapters"] = {
+                a.decode("ascii", "replace"): dict(
+                    reads_with_adapter=int(st.reads_with_adapter),
+                    reads_scanned=int(st.reads_scanned),
+                    first_occurrence=_trim(st.first_occurrence))
+                for a, st in self.adapter_stats.items()}
+        if self.duplication_levels is not None:
+            d["duplication_levels"] = np.asarray(
+                self.duplication_levels).astype(int).tolist()
+            d["frac_unique_reads"] = round(float(self.frac_unique_reads), 6)
+            d["overrepresented"] = [
+                dict(sequence=s.decode("ascii", "replace"), count=c)
+                for s, c in (self.overrepresented or [])]
+        if self.quality_quartiles is not None:
+            w = len(d.get("per_pos_count", self.per_position_mean_quality))
+            qq = np.asarray(self.quality_quartiles)[:, :w].astype(int)
+            d["quality_quartiles"] = dict(zip(
+                ("p10", "q1", "median", "q3", "p90"),
+                (row.tolist() for row in qq)))
+        if self.nw_scores is not None:
+            d["nw_score_mean"] = round(float(np.mean(self.nw_scores)), 4)
         return d
 
 
 class QCModel:
-    """Streaming QC engine on one device.
+    """Streaming QC (and optional alignment) engine on one device.
 
     `device` is where the QC passes run: "cuda" (the default) needs a CUDA
     card and raises without one; "cpu" runs the plain torch versions of the
-    kernels and must be asked for by name. Adapters, duplicates, alignment,
-    quartiles and mesh sharding are accepted here and refused by
-    run_file_device, as in the reference."""
+    kernels and must be asked for by name. Adapters, duplicates, alignment
+    and quartiles run on run_file / run_reader / run_parser and are refused
+    by run_file_device, as in the reference. `mesh` is accepted and refused
+    where it would be used: multi-GPU is a later slice of the port."""
 
     def __init__(self, quality_schema: str | QualitySchema = "generic",
                  check_ascii: bool = True, check_quality: bool = True,
@@ -110,15 +167,10 @@ class QCModel:
                  align_to: Optional[bytes] = None,
                  adapters: Optional[list] = None,
                  track_duplicates: bool = False,
+                 dup_track_limit: int = 200_000,
                  track_quartiles: bool = False,
                  mesh=None, device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "QCModel(device=%r): CUDA is not available; pass "
-                "device='cpu' to run the plain torch path" % str(device))
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError("QCModel: unsupported device %r" % str(device))
+        self.device = resolve_device(device, "QCModel")
         # "auto": resolve lazily from the first file's head bytes
         self._auto_schema = quality_schema == "auto"
         if self._auto_schema:
@@ -132,12 +184,20 @@ class QCModel:
         self.batch_size = batch_size
         self.max_read_len = round_up(max_read_len, _WIDTH_UNIT)
         self.align_to = align_to
+        # the reference is uploaded once
+        self._ref = (None if align_to is None else torch.from_numpy(
+            np.frombuffer(bytes(align_to), np.uint8).copy()).to(self.device))
         self.adapters = [bytes(a) for a in adapters] if adapters else None
+        # FastQC-style: profile duplication over the first dup_track_limit
+        # reads (the device hashes every read; the host counts repeats)
         self.track_duplicates = track_duplicates
+        self.dup_track_limit = dup_track_limit
         self.track_quartiles = track_quartiles
         self.mesh = mesh
         self._step = build_qc_align_step(
-            check_ascii=check_ascii, check_quality=check_quality)
+            check_ascii=check_ascii, check_quality=check_quality,
+            with_alignment=align_to is not None,
+            qual_hist_2d=track_quartiles)
         # chunks / padded batches each route took in the last pass
         self.tier_chunks = {"uniform": 0, "host": 0}
 
@@ -147,6 +207,82 @@ class QCModel:
 
             self.schema = detect_quality_schema_file(str(path))
             self._auto_schema = False  # one corpus per model instance
+
+    def run_file(self, path, parallelism: int = 4) -> QCReport:
+        """QC (and the optional panels) of one FASTQ file, plain or gzip,
+        through the host parser and the padded-batch device step."""
+        self._resolve_auto_schema(path)
+        return self.run_reader(open_reader(path, parallelism=parallelism))
+
+    def run_reader(self, reader) -> QCReport:
+        return self.run_parser(self._parser(reader))
+
+    def run_parser(self, parser: FastqParser) -> QCReport:
+        if self._auto_schema:
+            raise ValueError(
+                "quality_schema='auto' needs a path-based entry point "
+                "(run_file / run_file_device): a stream cannot be peeked "
+                "twice")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "mesh sharding is not ported yet (ROADMAP Queue 1, "
+                "multi-GPU)")
+        acc = QCAccumulator()
+        # device-resident running total, flushed to the host every
+        # _FLUSH_EVERY batches (int32 leaves stay far from overflow)
+        dev_total = None
+        pending = 0
+        scores = [] if self.align_to is not None else None
+        ad_totals = ({a: None for a in self.adapters}
+                     if self.adapters else None)
+        dup_hashes = [] if self.track_duplicates else None
+        dup_prefixes = []
+        dup_seen = 0
+        for pb in parser.padded_batches(self.batch_size,
+                                        max_len=self.max_read_len,
+                                        pad_records_to=self.batch_size):
+            n = int(pb.n_records)
+            seq, qual, lengths = self._upload(pb)
+            res = self._step(seq, qual, lengths, n, self.schema, self._ref)
+            dev_total = (res.stats if dev_total is None
+                         else dev_total.merge(res.stats))
+            pending += 1
+            if pending >= _FLUSH_EVERY:
+                acc.add(dev_total)
+                dev_total = None
+                pending = 0
+            if scores is not None:
+                scores.append(res.nw_scores[:n])
+            if ad_totals is not None:
+                for a in self.adapters:
+                    ast = adapter_content(seq, lengths, n, adapter_host=a)
+                    ad_totals[a] = (ast if ad_totals[a] is None
+                                    else ad_totals[a].merge(ast))
+            if dup_hashes is not None and dup_seen < self.dup_track_limit:
+                take = min(n, self.dup_track_limit - dup_seen)
+                dup_hashes.append(read_hashes(seq, lengths, n)[:take])
+                # 50 bp representative prefixes for the overrepresented list
+                dup_prefixes.append(
+                    np.array(pb.seq[:take, : min(50, pb.seq.shape[1])]))
+                dup_seen += take
+        if dev_total is not None:
+            acc.add(dev_total)
+        extra = {}
+        if scores:
+            extra["nw_scores"] = torch.cat(scores).cpu().numpy()
+        if ad_totals is not None:
+            extra["adapter_stats"] = {a: st.to_numpy()
+                                      for a, st in ad_totals.items()
+                                      if st is not None}
+        if dup_hashes is not None:
+            extra.update(self._dup_report(dup_hashes, dup_prefixes))
+        return self._report_from_acc(acc, **extra)
+
+    def _upload(self, pb):
+        """A padded batch's seq, qual and int32 lengths on the device."""
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                     for a in (pb.seq, pb.qual,
+                               np.asarray(pb.lengths, np.int32)))
 
     def run_file_device(self, path, chunk_mb: int = 256,
                         parallelism: int = 4) -> QCReport:
@@ -310,18 +446,16 @@ class QCModel:
         for pb in parser.padded_batches(self.batch_size,
                                         max_len=self.max_read_len,
                                         pad_records_to=self.batch_size):
-            res = self._step(
-                torch.from_numpy(pb.seq).to(self.device),
-                torch.from_numpy(pb.qual).to(self.device),
-                torch.from_numpy(np.asarray(pb.lengths, np.int32)).to(
-                    self.device),
-                int(pb.n_records), self.schema)
+            res = self._step(*self._upload(pb), int(pb.n_records),
+                             self.schema)
             acc.add(res.stats)
             self.tier_chunks["host"] += 1
 
-    def _report_from_acc(self, acc) -> QCReport:
+    def _report_from_acc(self, acc, **extra) -> QCReport:
+        """The report from the host totals: the core panels, the quartile
+        panel when tracked, and the `extra` fields."""
         if acc.total is None:
-            acc.add(zero_stats(self.max_read_len))
+            acc.add(zero_stats(self.max_read_len, self.track_quartiles))
         t = acc.total
         return QCReport(
             reads=int(t.reads),
@@ -337,4 +471,29 @@ class QCModel:
             mean_qual_hist=np.asarray(t.mean_qual_hist),
             per_pos_base_counts=np.asarray(t.per_pos_base_counts),
             per_pos_count=np.asarray(t.per_pos_count),
+            **self._quartile_report(acc),
+            **extra,
         )
+
+    @staticmethod
+    def _quartile_report(acc) -> dict:
+        """quality_quartiles / per_pos_qual_hist report fields (empty when
+        the distribution was not tracked)."""
+        t = acc.total
+        if t is None or t.per_pos_qual_hist is None:
+            return {}
+        return dict(
+            quality_quartiles=acc.per_position_quality_quartiles(),
+            per_pos_qual_hist=np.asarray(t.per_pos_qual_hist))
+
+    @staticmethod
+    def _dup_report(dup_hashes, dup_prefixes) -> dict:
+        """The duplication panel's fields from the sampled hashes (int64
+        device tensors holding uint32 values) and 50 bp prefixes."""
+        h = (torch.cat(dup_hashes).cpu().numpy().astype(np.uint32)
+             if dup_hashes else np.empty((0, 2), np.uint32))
+        pfx = (np.concatenate(dup_prefixes)
+               if dup_prefixes else np.empty((0, 0), np.uint8))
+        levels, frac_unique = duplication_levels(h)
+        return dict(duplication_levels=levels, frac_unique_reads=frac_unique,
+                    overrepresented=overrepresented_sequences(h, pfx))

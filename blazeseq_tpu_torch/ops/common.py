@@ -18,3 +18,17 @@ def length_mask(lengths: torch.Tensor, width: int,
     records' true lengths."""
     pos = torch.arange(width, dtype=torch.int64, device=lengths.device)
     return (pos[None, :] + col_offset) < lengths[:, None].to(torch.int64)
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """The torch device a model runs on. "cuda" needs a CUDA card and raises
+    without one; "cpu" (the plain torch versions of the kernels) must be
+    asked for by name; anything else raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "%s(device=%r): CUDA is not available; pass device='cpu' to run "
+            "the plain torch path" % (who, str(device)))
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError("%s: unsupported device %r" % (who, str(device)))
+    return dev

@@ -44,6 +44,11 @@ class QCStats(NamedTuple):
     # tracked
     per_pos_qual_hist: Optional[torch.Tensor] = None
 
+    def merge(self, other: "QCStats") -> "QCStats":
+        """Leaf-wise sum of two batches' stats of one width."""
+        return QCStats(*(None if a is None else a + b
+                         for a, b in zip(self, other)))
+
     def to_numpy(self) -> "QCStats":
         """The leaves as int64 numpy arrays, brought to the host in one
         device-to-host copy (None stays None)."""
@@ -252,6 +257,38 @@ class QCAccumulator:
         t = self._tot
         cnt = np.maximum(t.per_pos_count, 1)
         return t.per_pos_qual_sum / cnt
+
+    def mean_read_length(self) -> float:
+        t = self._tot
+        return float(t.bases) / max(float(t.reads), 1.0)
+
+    def modal_read_length(self) -> int:
+        """Most common read length (lengths >= LEN_BINS clip to the last
+        bin)."""
+        return int(np.argmax(self._tot.length_hist))
+
+    def per_position_quality_quartiles(
+            self, probs=(0.10, 0.25, 0.50, 0.75, 0.90)) -> np.ndarray:
+        """[len(probs), L] lower empirical percentiles per position from the
+        tracked distribution (FastQC per-base boxplot: deciles, quartiles
+        and median). Needs qual_hist_2d tracking
+        (QCModel(track_quartiles=True)); positions with no in-window bases
+        report 0."""
+        t = self._tot
+        if t.per_pos_qual_hist is None:
+            raise ValueError(
+                "per-position quality distribution was not tracked; "
+                "construct QCModel(track_quartiles=True) or call "
+                "qc_stats(qual_hist_2d=True)")
+        cum = np.cumsum(t.per_pos_qual_hist, axis=0)  # [MAX_PHRED, L]
+        n = cum[-1]
+        rows = []
+        for p in probs:
+            # inverse empirical CDF: smallest phred v with cdf(v) >= p
+            thresh = np.maximum(np.ceil(p * n).astype(np.int64), 1)
+            v = (cum < thresh[None, :]).sum(axis=0)
+            rows.append(np.where(n > 0, v, 0))
+        return np.stack(rows)
 
 
 def _add_padded(a: np.ndarray, b: np.ndarray) -> np.ndarray:

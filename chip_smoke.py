@@ -2,16 +2,27 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds the port's CUDA kernels from blazeseq_tpu_torch/csrc, holds each
-kernel against its plain torch version on the card, then drives the main
-path, QCModel(device="cuda").run_file_device, over a 4 GiB uniform FASTQ
-file and a 1 GiB quality-binned one, each checked panel by panel against an
-independent numpy oracle, and finally the fallback route (a mid-file
-quality error and a trailing partial record) against the same call on the
-CPU. Every phase raises on failure. The second-to-last lines are the
-kernels' JSON record and the card's name and power limit; the last line is
-the device JSON. Needs a CUDA card: without one it exits nonzero and prints
-no result.
+Builds the port's CUDA kernels from blazeseq_tpu_torch/csrc (one nvcc per
+source, all started together), holds each kernel against its plain torch
+version on the card, then drives the port's paths, each with the launch
+counts set to 0 just before it and read just after:
+
+* QCModel(device="cuda").run_file_device over a 4 GiB uniform FASTQ file
+  and a 1 GiB quality-binned one, each checked panel by panel against an
+  independent numpy oracle;
+* its fallback route (a mid-file quality error and a trailing partial
+  record) against the same call on the CPU;
+* NWAligner on 1M reads x 40 bp against a 40 bp reference in batches of
+  65,536, the first 2,000 scores against the numpy twin;
+* QCModel(align_to=..., adapters, duplicates, quartiles).run_file on 1M
+  reads x 150 bp: core panels against the oracle, 2,000 alignment scores
+  against the numpy twin, and every panel of a 20,000-read prefix against
+  the same call on the CPU.
+
+Every phase raises on failure. The second-to-last lines are the kernels'
+JSON record and the card's name and power limit; the last line is the
+device JSON. Needs a CUDA card: without one it exits nonzero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -46,6 +57,16 @@ _PHRED_LUT = NOVASEQ_BINS[np.searchsorted(NOVASEQ_EDGES, np.arange(64))]
 
 KERNEL_B_SOURCE = "blazeseq_tpu_torch/csrc/uniform_qc.cu"
 KERNEL_A_SOURCE = "blazeseq_tpu_torch/csrc/validate.cu"
+KERNEL_NW_SOURCE = "blazeseq_tpu_torch/csrc/nw.cu"
+# the upstream nw_gpu example: 1M reads x 40 bp against a 40 bp reference
+NW_READS = 1_000_000
+NW_READ_LEN = 40
+NW_BATCH = 65536
+NW_REFERENCE = b"GATTACAGATTACAGATTACAGATTACAGATTACAGATTA"
+ADAPTER = b"AGATCGGAAGAG"
+ALIGN_READS = 1_000_000
+ALIGN_PREFIX_READS = 20_000
+TWIN_SAMPLE = 2_000
 
 
 def log(*a):
@@ -54,9 +75,11 @@ def log(*a):
 
 # ------------------------------------------------------------- the corpus
 
-def _make_block(seed, block, start, n, binned):
+def _make_block(seed, block, start, n, binned, planted=False):
     """Records [start, start+n) as a u8[n, RS] matrix, and their oracle
-    partials (int64 numpy)."""
+    partials (int64 numpy). `planted`: every 8th read carries ADAPTER at a
+    random offset and every 16th copies one of its block's first 64
+    reads."""
     rng = np.random.default_rng([seed, block])
     rec = np.empty((n, RS), np.uint8)
     h = len(HEADER)
@@ -70,6 +93,15 @@ def _make_block(seed, block, start, n, binned):
     phred = rng.integers(2, 42, (n, READ_LEN), dtype=np.uint8)
     if binned:
         phred = _PHRED_LUT[phred].astype(np.uint8)
+    if planted:
+        la = len(ADAPTER)
+        rows = np.arange(0, n, 8)
+        offs = rng.integers(0, READ_LEN - la + 1, len(rows))
+        # draws 0..3 are A C G T in _SEQ_LUT
+        draw[rows[:, None], offs[:, None] + np.arange(la)] = np.array(
+            [b"ACGT".index(c) for c in ADAPTER], np.uint8)
+        dups = np.arange(5, n, 16)
+        draw[dups] = draw[rng.integers(0, min(64, n), len(dups))]
     s0 = h + 1
     q0 = s0 + READ_LEN + 3
     rec[:, h] = 10
@@ -97,7 +129,7 @@ def _make_block(seed, block, start, n, binned):
     return rec, part
 
 
-def write_corpus(path, n_records, seed, binned=False):
+def write_corpus(path, n_records, seed, binned=False, planted=False):
     """Write n_records uniform records to `path` (threads generate blocks
     and pwrite them at their offsets) and return the oracle totals."""
     tot = None
@@ -106,7 +138,7 @@ def write_corpus(path, n_records, seed, binned=False):
         def job(b):
             start = b * BLOCK_RECORDS
             n = min(BLOCK_RECORDS, n_records - start)
-            rec, part = _make_block(seed, b, start, n, binned)
+            rec, part = _make_block(seed, b, start, n, binned, planted)
             view, off = memoryview(rec).cast("B"), start * RS
             while len(view):
                 k = os.pwrite(fd, view, off)
@@ -465,6 +497,198 @@ def phase_fallback(seed, tmp):
         % (rep_gpu.reads, rep_gpu.error_reads, gpu.tier_chunks))
 
 
+def phase_kernel_nw(seed):
+    """The NW kernel against its plain version on the card, exact, at the
+    upstream example's shape, QCModel's batch and width, and an edge batch
+    (lengths 0 and = width, bytes 0xFE and 0xFF, references of 1 and 1,000
+    bytes). Returns the JSON fields (timed at the example's shape) and the
+    timings of both timed shapes."""
+    import torch
+
+    from blazeseq_tpu_torch.ops.nw import (needleman_wunsch_cpu, nw_scores,
+                                           nw_scores_torch)
+
+    rng = np.random.default_rng([seed, 3])
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    edge = np.frombuffer(b"ACGT\xfe\xff", np.uint8)
+    cases = [("example", NW_BATCH, 64, len(NW_REFERENCE), NW_READ_LEN, acgt),
+             ("qc_batch", 4096, 256, READ_LEN, READ_LEN, acgt),
+             ("edge_ref_1", 4096, 128, 1, None, edge),
+             ("edge_ref_1000", 4096, 128, 1000, None, edge)]
+    err = 0
+    times = {}
+    for label, B, Lq, Lr, read_len, alpha in cases:
+        seq = rng.choice(alpha, (B, Lq))
+        ref = rng.choice(alpha, Lr)
+        lengths = (rng.integers(0, Lq + 1, B) if read_len is None
+                   else np.full(B, read_len)).astype(np.int32)
+        lengths[:8] = 0
+        lengths[8:16] = Lq
+        d = [torch.from_numpy(a).cuda() for a in (seq, lengths, ref)]
+        got = nw_scores(*d)
+        want = nw_scores_torch(*d)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_diff((got,), (want,), "NW kernel, " + label))
+        host = got.cpu().numpy()
+        for b in (0, 8, 16, 17):
+            twin = needleman_wunsch_cpu(seq[b, :lengths[b]].tobytes(),
+                                        ref.tobytes())
+            if host[b] != twin:
+                raise AssertionError("NW kernel, %s: row %d scores %d, the "
+                                     "numpy twin %d" % (label, b, host[b],
+                                                        twin))
+        if label in ("example", "qc_batch"):
+            ms = cuda_ms(lambda: nw_scores(*d))
+            plain_ms = cuda_ms(lambda: nw_scores_torch(*d), inner=1,
+                               trials=3)
+            times[label] = dict(B=B, Lq=Lq, Lr=Lr, ms=ms, plain_ms=plain_ms)
+            log("NW kernel [%d, %d] vs Lr=%d: kernel %.4f ms, plain %.3f ms"
+                % (B, Lq, Lr, ms, plain_ms))
+    log("NW kernel == plain on %d shapes" % len(cases))
+    return dict(max_abs_err=err, ms=times["example"]["ms"],
+                plain_ms=times["example"]["plain_ms"]), times
+
+
+def phase_aligner():
+    """NWAligner end to end at the upstream nw_gpu example's scale: host
+    parse into padded batches of 65,536, scores on the card, the first
+    2,000 against the numpy twin."""
+    import torch
+
+    import blazeseq_tpu as bt
+    from blazeseq_tpu_torch import NWAligner
+
+    t0 = time.perf_counter()
+    buf = bytes(bt.generate_synthetic_fastq_buffer(
+        NW_READS, NW_READ_LEN, NW_READ_LEN, 2, 40, "sanger"))
+    log("aligner corpus: %d reads x %d bp (%d bytes) made in %.1f s"
+        % (NW_READS, NW_READ_LEN, len(buf), time.perf_counter() - t0))
+    aligner = NWAligner(NW_REFERENCE, max_query_len=64, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parts = [aligner.score_padded(pb)
+             for pb in bt.FastqParser(bt.MemoryReader(buf)).padded_batches(
+                 NW_BATCH, max_len=64, pad_records_to=NW_BATCH)]
+    wall = time.perf_counter() - t0
+    scores = np.concatenate(parts)
+    if scores.shape != (NW_READS,) or scores.dtype != np.int32:
+        raise AssertionError("aligner: %s scores of %s"
+                             % (scores.shape, scores.dtype))
+    batch = bt.FastqParser(bt.MemoryReader(buf)).next_batch(TWIN_SAMPLE)
+    if not np.array_equal(scores[:TWIN_SAMPLE], aligner.score_cpu(batch)):
+        raise AssertionError("aligner: scores differ from the numpy twin")
+    rate = NW_READS / wall
+    log("aligner: %d alignments in %.3f s, %.0f alignments/s; first %d == "
+        "numpy twin" % (NW_READS, wall, rate, TWIN_SAMPLE))
+    return dict(reads=NW_READS, wall_s=wall, alignments_per_s=rate)
+
+
+def _same_reports(a, b, label):
+    """Every panel of two QCReports equal; raises on the first that is
+    not."""
+    da, db = a.to_dict(), b.to_dict()
+    if da != db:
+        raise AssertionError("%s: to_dict differs in %s" % (label, sorted(
+            k for k in set(da) | set(db) if da.get(k) != db.get(k))))
+    for k in ("nw_scores", "duplication_levels", "quality_quartiles",
+              "per_pos_qual_hist", "base_counts", "qual_hist",
+              "per_pos_base_counts"):
+        x, y = getattr(a, k), getattr(b, k)
+        if (x is None) != (y is None) or (
+                x is not None and not np.array_equal(x, y)):
+            raise AssertionError("%s: %s differs" % (label, k))
+    for ad, st in (a.adapter_stats or {}).items():
+        if not all(np.array_equal(x, y)
+                   for x, y in zip(st, b.adapter_stats[ad])):
+            raise AssertionError("%s: adapter panel %r differs" % (label, ad))
+    if a.overrepresented != b.overrepresented:
+        raise AssertionError("%s: overrepresented sequences differ" % label)
+
+
+def phase_align_run_file(seed, tmp):
+    """QCModel(align_to=..., adapters, duplicates, quartiles).run_file on
+    1M reads x 150 bp on the card: core panels against the oracle, 2,000
+    alignment scores against the numpy twin, and every panel of a
+    20,000-read prefix against the same call on the CPU."""
+    import torch
+
+    import blazeseq_tpu as bt
+    from blazeseq_tpu_torch import QCModel
+    from blazeseq_tpu_torch.ops.nw import needleman_wunsch_cpu
+
+    ref = np.random.default_rng([seed, 4]).choice(
+        np.frombuffer(b"ACGT", np.uint8), READ_LEN).tobytes()
+    kw = dict(quality_schema="sanger", align_to=ref, adapters=[ADAPTER],
+              track_duplicates=True, track_quartiles=True)
+    path = os.path.join(tmp, "align.fastq")
+    prefix = os.path.join(tmp, "align_prefix.fastq")
+    t0 = time.perf_counter()
+    oracle = write_corpus(path, ALIGN_READS, seed + 17, planted=True)
+    with open(path, "rb") as f:
+        head = f.read(ALIGN_PREFIX_READS * RS)
+    with open(prefix, "wb") as f:
+        f.write(head)
+    log("align corpus: %d records of %d bytes written in %.1f s"
+        % (ALIGN_READS, RS, time.perf_counter() - t0))
+    try:
+        model = QCModel(device="cuda", **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = model.run_file(path)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_report(rep, oracle, model.max_read_len)
+        if rep.nw_scores.shape != (ALIGN_READS,):
+            raise AssertionError("run_file: %s alignment scores"
+                                 % (rep.nw_scores.shape,))
+        batch = bt.FastqParser(bt.MemoryReader(head)).next_batch(TWIN_SAMPLE)
+        twin = np.array([needleman_wunsch_cpu(
+            batch.get_ref(i).sequence_bytes(), ref)
+            for i in range(TWIN_SAMPLE)], np.int32)
+        if not np.array_equal(rep.nw_scores[:TWIN_SAMPLE], twin):
+            raise AssertionError("run_file: alignment scores differ from "
+                                 "the numpy twin")
+        hits = int(rep.adapter_stats[ADAPTER].reads_with_adapter)
+        if hits < ALIGN_READS // 8:
+            raise AssertionError("run_file: %d reads with the adapter, "
+                                 "%d planted" % (hits, ALIGN_READS // 8))
+        if rep.frac_unique_reads >= 1.0:
+            raise AssertionError("run_file: no duplicate found")
+        size = ALIGN_READS * RS
+        log("run_file(align_to, adapters, duplicates, quartiles): %d reads "
+            "in %.3f s, %.0f reads/s, %.3f GB/s; adapter in %d reads, "
+            "unique %.4f; first %d scores == numpy twin"
+            % (ALIGN_READS, wall, ALIGN_READS / wall, size / wall / 1e9,
+               hits, rep.frac_unique_reads, TWIN_SAMPLE))
+        gpu = QCModel(device="cuda", **kw).run_file(prefix)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cpu = QCModel(device="cpu", **kw).run_file(prefix)
+        _same_reports(gpu, cpu, "run_file prefix, cuda vs cpu")
+        log("run_file prefix (%d reads): cuda == cpu on every panel (cpu "
+            "took %.1f s)" % (ALIGN_PREFIX_READS, time.perf_counter() - t0))
+    finally:
+        os.unlink(path)
+        os.unlink(prefix)
+    return dict(reads=ALIGN_READS, bytes=size, wall_s=wall,
+                reads_per_s=ALIGN_READS / wall, gbps=size / wall / 1e9)
+
+
+def run_path(name, fn, kernels):
+    """Drive one path with every launch count set to 0 just before it;
+    returns its result and the counts read just after. Raises when a kernel
+    of the path was never launched."""
+    import torch
+
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = {name_: k.launches for name_, k in kernels.items()}
+    log("launches on the %s path: %s" % (name, got))
+    return out, got
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -473,32 +697,46 @@ def main(argv=None):
 
     t_start = time.perf_counter()
     name, smi = phase_card()
+    from blazeseq_tpu_torch.ops.nw import nw_scores
     from blazeseq_tpu_torch.ops.uniform_qc import uniform_qc
     from blazeseq_tpu_torch.ops.validate import validate_decode
 
+    kernels = dict(uniform_qc=uniform_qc, validate_decode=validate_decode,
+                   nw_scores=nw_scores)
     phase_build()
     torch.cuda.synchronize()
     ka = phase_kernel_a(args.seed)
     torch.cuda.synchronize()
     kb = phase_kernel_b(args.seed)
     torch.cuda.synchronize()
+    knw, nw_times = phase_kernel_nw(args.seed)
+    torch.cuda.synchronize()
+    # each path: (name, phase, the kernels it must launch)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    paths = [
+        ("run_file_device", lambda: phase_main_path(args.seed, tmp),
+         ("uniform_qc",)),
+        ("fallback", lambda: phase_fallback(args.seed, tmp),
+         ("validate_decode",)),
+        ("NWAligner", phase_aligner, ("nw_scores",)),
+        ("run_file(align_to)", lambda: phase_align_run_file(args.seed, tmp),
+         ("validate_decode", "nw_scores")),
+    ]
+    e2e = {}
+    launches = dict.fromkeys(kernels, 0)
     try:
-        # the main path's launches: counted from here to the fallback's end
-        uniform_qc.launches = 0
-        validate_decode.launches = 0
-        e2e = phase_main_path(args.seed, tmp)
-        torch.cuda.synchronize()
-        phase_fallback(args.seed, tmp)
-        torch.cuda.synchronize()
-        launches = dict(uniform_qc=uniform_qc.launches,
-                        validate_decode=validate_decode.launches)
+        for path_name, fn, needed in paths:
+            e2e[path_name], got = run_path(path_name, fn, kernels)
+            for k in needed:
+                if got[k] == 0:
+                    raise AssertionError("kernel %s was never launched on "
+                                         "the %s path" % (k, path_name))
+            for k, v in got.items():
+                launches[k] += v
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log("launches on the main path:", launches)
-    for k, v in launches.items():
-        if v == 0:
-            raise AssertionError("kernel %s was never launched" % k)
+    log("launches on the paths, summed:", launches)
+    log("NW kernel timings:", json.dumps(nw_times))
     log("end to end:", json.dumps(e2e))
     log("total %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": [
@@ -508,6 +746,9 @@ def main(argv=None):
         dict(name="validate_decode", route="cuda", source=KERNEL_A_SOURCE,
              replaces="blazeseq_tpu/ops/validate.py:94",
              launches=launches["validate_decode"], **ka),
+        dict(name="nw_scores", route="cuda", source=KERNEL_NW_SOURCE,
+             replaces="blazeseq_tpu/ops/nw.py:174",
+             launches=launches["nw_scores"], **knw),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
