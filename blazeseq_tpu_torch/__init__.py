@@ -9,6 +9,10 @@ unchanged and loads no JAX. Entry points::
     report = QCModel(quality_schema="sanger").run_file_device("reads.fastq")
     report = QCModel(quality_schema="sanger", align_to=ref).run_file(path)
     scores = NWAligner(ref).score_padded(padded_batch)
+
+The device ops (the device-parse API, trimming, k-mers, tiles, demux,
+merge) are in ``blazeseq_tpu_torch.ops`` under the reference's names, and
+``python -m blazeseq_tpu_torch`` is the command line.
 """
 
 from .models.aligner import NWAligner

@@ -25,7 +25,7 @@ import tempfile
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("validate.cu", "uniform_qc.cu", "nw.cu")
+SOURCES = ("validate.cu", "uniform_qc.cu", "nw.cu", "scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "libblazeseq_kernels.so"
@@ -46,6 +46,8 @@ _SIGNATURES = {
     "bs_uniform_qc_smem_bytes": (_I,),
     # seq, lengths, ref, scores, scratch, B, Lq, Lr, stream
     "bs_nw_scores": (_P, _P, _P, _P, _P, _LL, _I, _I, _P),
+    # chunk, nl, at, plus, counts, rows, max_blocks, stream
+    "bs_structural_bitmaps": (_P, _P, _P, _P, _P, _LL, _I, _P),
 }
 
 

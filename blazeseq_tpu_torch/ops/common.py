@@ -5,6 +5,11 @@ from __future__ import annotations
 
 import torch
 
+# the structural bytes of a FASTQ record
+NEWLINE = 10
+AT = 64
+PLUS = 43
+
 
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m

@@ -21,11 +21,8 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
+from .common import AT, NEWLINE, PLUS
 from .stats import GC_BINS, LEN_BINS, MAX_PHRED, QCStats, bin_counts
-
-NEWLINE = 10
-AT = 64
-PLUS = 43
 
 _BASES = b"ACGT"
 # dynamic shared memory one block may use on sm_90

@@ -7,7 +7,7 @@ source, all started together), holds each kernel against its plain torch
 version on the card, then drives the port's paths, each with the launch
 counts set to 0 just before it and read just after:
 
-* QCModel(device="cuda").run_file_device over a 4 GiB uniform FASTQ file
+* QCModel(device="cuda").run_file_device over a 2 GiB uniform FASTQ file
   and a 1 GiB quality-binned one, each checked panel by panel against an
   independent numpy oracle;
 * its fallback route (a mid-file quality error and a trailing partial
@@ -17,7 +17,14 @@ counts set to 0 just before it and read just after:
 * QCModel(align_to=..., adapters, duplicates, quartiles).run_file on 1M
   reads x 150 bp: core panels against the oracle, 2,000 alignment scores
   against the numpy twin, and every panel of a 20,000-read prefix against
-  the same call on the CPU.
+  the same call on the CPU;
+* the device-parse API (raw_stream_qc, count_records_device,
+  parse_fastq_device) over a 1 GiB ragged FASTQ in 256 MiB chunks, against
+  the host parser and the generator;
+* the command line (python -m blazeseq_tpu_torch: stats, stats --device,
+  trim in three modes, demux, merge, tiles) in-process on the card over
+  the 1M-read file and 250,000 read pairs, against the host twins, and on
+  20,000-read prefixes against the same commands on the CPU.
 
 Every phase raises on failure. The second-to-last lines are the kernels'
 JSON record and the card's name and power limit; the last line is the
@@ -58,6 +65,7 @@ _PHRED_LUT = NOVASEQ_BINS[np.searchsorted(NOVASEQ_EDGES, np.arange(64))]
 KERNEL_B_SOURCE = "blazeseq_tpu_torch/csrc/uniform_qc.cu"
 KERNEL_A_SOURCE = "blazeseq_tpu_torch/csrc/validate.cu"
 KERNEL_NW_SOURCE = "blazeseq_tpu_torch/csrc/nw.cu"
+KERNEL_SCAN_SOURCE = "blazeseq_tpu_torch/csrc/scan.cu"
 # the upstream nw_gpu example: 1M reads x 40 bp against a 40 bp reference
 NW_READS = 1_000_000
 NW_READ_LEN = 40
@@ -67,6 +75,24 @@ ADAPTER = b"AGATCGGAAGAG"
 ALIGN_READS = 1_000_000
 ALIGN_PREFIX_READS = 20_000
 TWIN_SAMPLE = 2_000
+# the planted corpus varies the tile field over TILES and starts every read
+# with one of DEMUX_BARCODES (some with an error, some replaced by noise)
+TILES = (1101, 1102, 2101, 2102)
+_TILE_COL = HEADER.index(b":1101:") + 1
+DEMUX_BARCODES = (b"ACGTACGT", b"TTGGCCAA", b"GATTACAG", b"CAGTCAGT")
+# device_parse: a ragged corpus shaped like adapter-trimmed Illumina output
+RAGGED_BYTES = 1 << 30
+RAGGED_LEN = (35, 300)  # read lengths, inclusive
+RAGGED_ID = (10, 60)  # id widths after the '@', inclusive
+RAGGED_MIN_RECORD = RAGGED_ID[0] + 2 * RAGGED_LEN[0] + 6
+_ID_LUT = np.frombuffer(b"ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789:_.-", np.uint8)
+PARSE_CHUNK = 256 << 20
+# merge: 250,000 pairs from 200 bp fragments, R1 = the first 150 bp, R2 =
+# the reverse complement of the last 150
+MATE_PAIRS = 250_000
+FRAG_LEN = 200
+MATE_HEADER = b"@P0000000/1"
+_COMP_LUT = np.frombuffer(b"TGCA", np.uint8)  # complement of draws 0..3
 
 
 def log(*a):
@@ -77,9 +103,11 @@ def log(*a):
 
 def _make_block(seed, block, start, n, binned, planted=False):
     """Records [start, start+n) as a u8[n, RS] matrix, and their oracle
-    partials (int64 numpy). `planted`: every 8th read carries ADAPTER at a
-    random offset and every 16th copies one of its block's first 64
-    reads."""
+    partials (int64 numpy). `planted`: the tile field takes one of TILES
+    and the read starts with one of DEMUX_BARCODES (every 8th of them with a
+    substitution, every 16th replaced by noise); then every 8th read carries
+    ADAPTER at a random offset and every 16th copies one of its block's
+    first 64 reads. The oracle then also holds per-tile Phred sums."""
     rng = np.random.default_rng([seed, block])
     rec = np.empty((n, RS), np.uint8)
     h = len(HEADER)
@@ -94,10 +122,22 @@ def _make_block(seed, block, start, n, binned, planted=False):
     if binned:
         phred = _PHRED_LUT[phred].astype(np.uint8)
     if planted:
+        tile_k = rng.integers(0, len(TILES), n)
+        rec[:, _TILE_COL:_TILE_COL + 4] = np.frombuffer(
+            b"".join(b"%d" % t for t in TILES), np.uint8).reshape(-1, 4)[
+                tile_k]
+        # draws 0..3 are A C G T in _SEQ_LUT
+        bc = np.array([[b"ACGT".index(c) for c in b] for b in DEMUX_BARCODES],
+                      np.uint8)
+        draw[:, :8] = bc[rng.integers(0, len(bc), n)]
+        err = np.flatnonzero(rng.random(n) < 1 / 8)
+        draw[err, rng.integers(0, 8, len(err))] = rng.integers(
+            0, 4, len(err), dtype=np.uint8)
+        junk = np.flatnonzero(rng.random(n) < 1 / 16)
+        draw[junk, :8] = rng.integers(0, 256, (len(junk), 8), dtype=np.uint8)
         la = len(ADAPTER)
         rows = np.arange(0, n, 8)
         offs = rng.integers(0, READ_LEN - la + 1, len(rows))
-        # draws 0..3 are A C G T in _SEQ_LUT
         draw[rows[:, None], offs[:, None] + np.arange(la)] = np.array(
             [b"ACGT".index(c) for c in ADAPTER], np.uint8)
         dups = np.arange(5, n, 16)
@@ -126,6 +166,10 @@ def _make_block(seed, block, start, n, binned, planted=False):
         mq_hist=np.bincount(np.minimum((2 * qs + READ_LEN)
                                        // (2 * READ_LEN), 63), minlength=64),
     )
+    if planted:
+        part["tile_pp"] = np.stack([phred[tile_k == k].sum(0, dtype=np.int64)
+                                    for k in range(len(TILES))])
+        part["tile_reads"] = np.bincount(tile_k, minlength=len(TILES))
     return rec, part
 
 
@@ -153,6 +197,99 @@ def write_corpus(path, n_records, seed, binned=False, planted=False):
     finally:
         os.close(fd)
     return tot
+
+
+def _exclusive_cumsum(a):
+    out = np.zeros(len(a), np.int64)
+    np.cumsum(a[:-1], out=out[1:])
+    return out
+
+
+def write_ragged_corpus(path, target_bytes, seed):
+    """Write records of RAGGED_LEN read lengths and RAGGED_ID id widths up
+    to `target_bytes` (threads fill blocks of records and pwrite them).
+    Returns the oracle totals and every record's start offset."""
+    rng = np.random.default_rng([seed, 99])
+    cap = target_bytes // RAGGED_MIN_RECORD + 1
+    read_len = rng.integers(RAGGED_LEN[0], RAGGED_LEN[1] + 1, cap)
+    id_len = rng.integers(RAGGED_ID[0], RAGGED_ID[1] + 1, cap)
+    size = id_len + 2 * read_len + 6
+    n = int(np.searchsorted(np.cumsum(size), target_bytes, side="right"))
+    read_len, id_len, size = read_len[:n], id_len[:n], size[:n]
+    starts = _exclusive_cumsum(size)
+    block = 1 << 17
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+
+    def job(b):
+        lo, hi = b * block, min(n, (b + 1) * block)
+        rl, il = read_len[lo:hi], id_len[lo:hi]
+        st = starts[lo:hi] - starts[lo]
+        brng = np.random.default_rng([seed, 99, b])
+        buf = np.empty(int(size[lo:hi].sum()), np.uint8)
+        rec = np.repeat(np.arange(hi - lo), il)
+        col = np.arange(len(rec)) - np.repeat(_exclusive_cumsum(il), il)
+        buf[st[rec] + 1 + col] = _ID_LUT[brng.integers(0, len(_ID_LUT),
+                                                       len(rec))]
+        draw = brng.integers(0, 256, int(rl.sum()), dtype=np.uint8)
+        phred = brng.integers(2, 42, len(draw), dtype=np.uint8)
+        rec = np.repeat(np.arange(hi - lo), rl)
+        seq_pos = (st[rec] + il[rec] + 2 + np.arange(len(rec))
+                   - np.repeat(_exclusive_cumsum(rl), rl))
+        buf[seq_pos] = _SEQ_LUT[draw]
+        buf[seq_pos + rl[rec] + 3] = phred + 33
+        del rec, seq_pos
+        sep = st + il + 2 + rl
+        buf[st] = ord("@")
+        buf[st + il + 1] = 10
+        buf[sep] = 10
+        buf[sep + 1] = ord("+")
+        buf[sep + 2] = 10
+        buf[sep + 3 + rl] = 10
+        view, off = memoryview(buf).cast("B"), int(starts[lo])
+        while len(view):
+            k = os.pwrite(fd, view, off)
+            view, off = view[k:], off + k
+        return (np.bincount(_CLASS_LUT[draw], minlength=5),
+                np.bincount(phred, minlength=64))
+
+    try:
+        with cf.ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
+            parts = list(ex.map(job, range(-(-n // block))))
+    finally:
+        os.close(fd)
+    oracle = dict(reads=n, bases=int(read_len.sum()),
+                  bytes=int(size.sum()),
+                  base_counts=sum(p[0] for p in parts),
+                  qual_hist=sum(p[1] for p in parts))
+    return oracle, np.append(starts, oracle["bytes"])
+
+
+def write_mates(path1, path2, n, seed):
+    """n read pairs from FRAG_LEN bp fragments: R1 = the first READ_LEN
+    bases, R2 = the reverse complement of the last READ_LEN, each with its
+    own random qualities; ids P<index>/1 and /2."""
+    rng = np.random.default_rng([seed, 77])
+    frag = rng.integers(0, 4, (n, FRAG_LEN), dtype=np.uint8)
+    h = len(MATE_HEADER)
+    rs = h + 1 + READ_LEN + 3 + READ_LEN + 1
+    for path, mate, bases in (
+            (path1, b"1", _SEQ_LUT[frag[:, :READ_LEN]]),
+            (path2, b"2", _COMP_LUT[frag[:, :FRAG_LEN - READ_LEN - 1:-1]])):
+        rec = np.empty((n, rs), np.uint8)
+        rec[:, :h] = np.frombuffer(MATE_HEADER[:-1] + mate, np.uint8)
+        idx = np.arange(n, dtype=np.int64)
+        for d in range(8, 1, -1):
+            rec[:, d] = idx % 10 + 48
+            idx //= 10
+        rec[:, h] = 10
+        rec[:, h + 1:h + 1 + READ_LEN] = bases
+        rec[:, h + 1 + READ_LEN:h + 4 + READ_LEN] = np.frombuffer(b"\n+\n",
+                                                                  np.uint8)
+        rec[:, h + 4 + READ_LEN:-1] = rng.integers(35, 75, (n, READ_LEN),
+                                                   dtype=np.uint8)
+        rec[:, -1] = 10
+        rec.tofile(path)
+    return rs
 
 
 def check_report(rep, oracle, width):
@@ -438,15 +575,16 @@ def _run_main(path, oracle, size, binned):
 
 
 def phase_main_path(seed, tmp):
-    """4 GiB uniform FASTQ, then a 1 GiB binned one, through
+    """2 GiB uniform FASTQ, then a 1 GiB binned one, through
     QCModel.run_file_device on the card, against the numpy oracle."""
-    need = (4 << 30) + (256 << 20)
+    need = (3 << 30) + (256 << 20)
     free = shutil.disk_usage(tmp).free
     if free < need:
-        raise RuntimeError("phase 5 needs %d free bytes in %s, found %d"
+        raise RuntimeError("run_file_device needs %d free bytes in %s, "
+                           "found %d"
                            % (need, tmp, free))
     out = {}
-    for label, gib, binned in (("main", 4, False), ("binned", 1, True)):
+    for label, gib, binned in (("main", 2, False), ("binned", 1, True)):
         path = os.path.join(tmp, label + ".fastq")
         n = (gib << 30) // RS
         t0 = time.perf_counter()
@@ -605,7 +743,31 @@ def _same_reports(a, b, label):
         raise AssertionError("%s: overrepresented sequences differ" % label)
 
 
-def phase_align_run_file(seed, tmp):
+def make_align_corpus(seed, tmp):
+    """The planted 1M x 150 bp corpus, its 20,000-read prefix, and the
+    merge mates (MATE_PAIRS pairs and a 20,000-pair prefix), written once
+    for the run_file(align_to) and cli paths."""
+    t0 = time.perf_counter()
+    files = dict(align=os.path.join(tmp, "align.fastq"),
+                 align_prefix=os.path.join(tmp, "align_prefix.fastq"),
+                 r1=os.path.join(tmp, "r1.fastq"),
+                 r2=os.path.join(tmp, "r2.fastq"))
+    oracle = write_corpus(files["align"], ALIGN_READS, seed + 17,
+                          planted=True)
+    mate_rs = write_mates(files["r1"], files["r2"], MATE_PAIRS, seed)
+    for name, rs in (("align", RS), ("r1", mate_rs), ("r2", mate_rs)):
+        with open(files[name], "rb") as f:
+            head = f.read(ALIGN_PREFIX_READS * rs)
+        files[name + "_prefix"] = os.path.join(tmp, name + "_prefix.fastq")
+        with open(files[name + "_prefix"], "wb") as f:
+            f.write(head)
+    log("align corpus: %d records of %d bytes, %d mate pairs of %d bytes, "
+        "written in %.1f s" % (ALIGN_READS, RS, MATE_PAIRS, mate_rs,
+                               time.perf_counter() - t0))
+    return files, oracle
+
+
+def phase_align_run_file(seed, files, oracle):
     """QCModel(align_to=..., adapters, duplicates, quartiles).run_file on
     1M reads x 150 bp on the card: core panels against the oracle, 2,000
     alignment scores against the numpy twin, and every panel of a
@@ -620,58 +782,380 @@ def phase_align_run_file(seed, tmp):
         np.frombuffer(b"ACGT", np.uint8), READ_LEN).tobytes()
     kw = dict(quality_schema="sanger", align_to=ref, adapters=[ADAPTER],
               track_duplicates=True, track_quartiles=True)
-    path = os.path.join(tmp, "align.fastq")
-    prefix = os.path.join(tmp, "align_prefix.fastq")
+    path, prefix = files["align"], files["align_prefix"]
+    with open(prefix, "rb") as f:
+        head = f.read()
+    model = QCModel(device="cuda", **kw)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    oracle = write_corpus(path, ALIGN_READS, seed + 17, planted=True)
-    with open(path, "rb") as f:
-        head = f.read(ALIGN_PREFIX_READS * RS)
-    with open(prefix, "wb") as f:
-        f.write(head)
-    log("align corpus: %d records of %d bytes written in %.1f s"
-        % (ALIGN_READS, RS, time.perf_counter() - t0))
-    try:
-        model = QCModel(device="cuda", **kw)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rep = model.run_file(path)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        check_report(rep, oracle, model.max_read_len)
-        if rep.nw_scores.shape != (ALIGN_READS,):
-            raise AssertionError("run_file: %s alignment scores"
-                                 % (rep.nw_scores.shape,))
-        batch = bt.FastqParser(bt.MemoryReader(head)).next_batch(TWIN_SAMPLE)
-        twin = np.array([needleman_wunsch_cpu(
-            batch.get_ref(i).sequence_bytes(), ref)
-            for i in range(TWIN_SAMPLE)], np.int32)
-        if not np.array_equal(rep.nw_scores[:TWIN_SAMPLE], twin):
-            raise AssertionError("run_file: alignment scores differ from "
-                                 "the numpy twin")
-        hits = int(rep.adapter_stats[ADAPTER].reads_with_adapter)
-        if hits < ALIGN_READS // 8:
-            raise AssertionError("run_file: %d reads with the adapter, "
-                                 "%d planted" % (hits, ALIGN_READS // 8))
-        if rep.frac_unique_reads >= 1.0:
-            raise AssertionError("run_file: no duplicate found")
-        size = ALIGN_READS * RS
-        log("run_file(align_to, adapters, duplicates, quartiles): %d reads "
-            "in %.3f s, %.0f reads/s, %.3f GB/s; adapter in %d reads, "
-            "unique %.4f; first %d scores == numpy twin"
-            % (ALIGN_READS, wall, ALIGN_READS / wall, size / wall / 1e9,
-               hits, rep.frac_unique_reads, TWIN_SAMPLE))
-        gpu = QCModel(device="cuda", **kw).run_file(prefix)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cpu = QCModel(device="cpu", **kw).run_file(prefix)
-        _same_reports(gpu, cpu, "run_file prefix, cuda vs cpu")
-        log("run_file prefix (%d reads): cuda == cpu on every panel (cpu "
-            "took %.1f s)" % (ALIGN_PREFIX_READS, time.perf_counter() - t0))
-    finally:
-        os.unlink(path)
-        os.unlink(prefix)
+    rep = model.run_file(path)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_report(rep, oracle, model.max_read_len)
+    if rep.nw_scores.shape != (ALIGN_READS,):
+        raise AssertionError("run_file: %s alignment scores"
+                             % (rep.nw_scores.shape,))
+    batch = bt.FastqParser(bt.MemoryReader(head)).next_batch(TWIN_SAMPLE)
+    twin = np.array([needleman_wunsch_cpu(
+        batch.get_ref(i).sequence_bytes(), ref)
+        for i in range(TWIN_SAMPLE)], np.int32)
+    if not np.array_equal(rep.nw_scores[:TWIN_SAMPLE], twin):
+        raise AssertionError("run_file: alignment scores differ from "
+                             "the numpy twin")
+    hits = int(rep.adapter_stats[ADAPTER].reads_with_adapter)
+    if hits < ALIGN_READS // 8:
+        raise AssertionError("run_file: %d reads with the adapter, "
+                             "%d planted" % (hits, ALIGN_READS // 8))
+    if rep.frac_unique_reads >= 1.0:
+        raise AssertionError("run_file: no duplicate found")
+    size = ALIGN_READS * RS
+    log("run_file(align_to, adapters, duplicates, quartiles): %d reads "
+        "in %.3f s, %.0f reads/s, %.3f GB/s; adapter in %d reads, "
+        "unique %.4f; first %d scores == numpy twin"
+        % (ALIGN_READS, wall, ALIGN_READS / wall, size / wall / 1e9,
+           hits, rep.frac_unique_reads, TWIN_SAMPLE))
+    gpu = QCModel(device="cuda", **kw).run_file(prefix)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cpu = QCModel(device="cpu", **kw).run_file(prefix)
+    _same_reports(gpu, cpu, "run_file prefix, cuda vs cpu")
+    log("run_file prefix (%d reads): cuda == cpu on every panel (cpu "
+        "took %.1f s)" % (ALIGN_PREFIX_READS, time.perf_counter() - t0))
     return dict(reads=ALIGN_READS, bytes=size, wall_s=wall,
                 reads_per_s=ALIGN_READS / wall, gbps=size / wall / 1e9)
+
+
+def phase_kernel_scan(seed):
+    """The structural-bitmap kernel against its plain version on the card,
+    bit-exact on all four outputs: a 256 MiB chunk of the smoke's records,
+    64 MiB of bytes drawn from {'\\n', '@', '+', 'A'}, and
+    count_records_device at N = 1, 127, 129 and 128k + 5 (zero padding).
+    Both timed on the 256 MiB chunk."""
+    import torch
+
+    from blazeseq_tpu_torch.ops.scan import (_pad_lane, count_records_device,
+                                             structural_bitmaps,
+                                             structural_bitmaps_torch)
+
+    err = 0
+    n_cases = 0
+
+    def compare(chunk, label):
+        nonlocal err, n_cases
+        got = structural_bitmaps(chunk)
+        want = structural_bitmaps_torch(chunk)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_diff(got, want, "scan kernel, " + label))
+        n_cases += 1
+        return want
+
+    rec, _ = _make_block(seed, 10 ** 6 + 1, 0, PARSE_CHUNK // RS, False)
+    host = rec.reshape(-1)
+    big = _pad_lane(torch.from_numpy(host).cuda())
+    compare(big, "256 MiB of records")
+    soup = np.random.default_rng([seed, 5]).choice(
+        np.frombuffer(b"\n@+A", np.uint8), 64 << 20)
+    compare(torch.from_numpy(soup).cuda(), "64 MiB of '\\n@+A'")
+    for n in (1, 127, 129, 128 * 1024 + 5):
+        want = compare(_pad_lane(big[:n]), "N=%d" % n)
+        got = count_records_device(big[:n])
+        expect = int(np.count_nonzero(host[:n] == 10)) // 4
+        if (got.dtype != torch.int32 or got.dim() != 0
+                or int(got) != expect
+                or int(want[3].sum()) // 4 != expect):
+            raise AssertionError("count_records_device(N=%d): %r, want %d"
+                                 % (n, got, expect))
+    ms = cuda_ms(lambda: structural_bitmaps(big))
+    plain_ms = cuda_ms(lambda: structural_bitmaps_torch(big), inner=2)
+    log("scan kernel == plain on %d cases; 256 MiB chunk: kernel %.4f ms "
+        "(%.1f GB/s), plain %.3f ms" % (n_cases, ms, big.numel() / ms / 1e6,
+                                        plain_ms))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def phase_device_parse(seed, tmp):
+    """The device-parse API on a 1 GiB ragged FASTQ fed in 256 MiB chunks:
+    raw_stream_qc, count_records_device(chunk[:tail_start]) == reads, and
+    parse_fastq_device; the partial tail goes to the next chunk. Totals
+    against the host parser, composition and Phred histogram against the
+    generator, every code 0, 2,000 sampled rows against the host parser's
+    bytes, and a planted '@' -> 'X' giving code 1 at its record."""
+    import torch
+
+    import blazeseq_tpu as bt
+    from blazeseq_tpu_torch.ops.raw_stats import raw_stream_qc
+    from blazeseq_tpu_torch.ops.scan import (count_records_device,
+                                             parse_fastq_device)
+
+    path = os.path.join(tmp, "ragged.fastq")
+    t0 = time.perf_counter()
+    oracle, starts = write_ragged_corpus(path, RAGGED_BYTES, seed + 23)
+    n_total = oracle["reads"]
+    log("ragged corpus: %d records, %d bytes, written in %.1f s"
+        % (n_total, oracle["bytes"], time.perf_counter() - t0))
+    data = np.memmap(path, np.uint8, "r")
+    max_records = PARSE_CHUNK // RAGGED_MIN_RECORD + 1
+    max_len = RAGGED_LEN[1]
+    sample = np.sort(np.random.default_rng([seed, 6]).choice(
+        n_total, TWIN_SAMPLE, replace=False))
+    pinned = torch.empty(PARSE_CHUNK, dtype=torch.uint8).pin_memory()
+    dev = torch.empty(PARSE_CHUNK, dtype=torch.uint8, device="cuda")
+    tot = dict(reads=0, bases=0, base_counts=np.zeros(5, np.int64),
+               qual_hist=np.zeros(64, np.int64))
+    rows = []
+    pos = rec0 = chunks = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while pos < len(data):
+        m = min(PARSE_CHUNK, len(data) - pos)
+        pinned.numpy()[:m] = data[pos:pos + m]
+        chunk = dev[:m]
+        chunk.copy_(pinned[:m], non_blocking=True)
+        raw = raw_stream_qc(chunk, 33, 126, 33)
+        tail = int(raw.tail_start)
+        reads = int(raw.reads)
+        if tail == 0 or any(bool(f) for f in (
+                raw.bad_structure, raw.seq_qual_mismatch, raw.bad_ascii,
+                raw.bad_quality)):
+            raise AssertionError("device_parse: chunk at %d: %r"
+                                 % (pos, raw))
+        body = chunk[:tail]
+        counted = int(count_records_device(body))
+        seq, qual, lengths, n_rec, codes = parse_fastq_device(
+            body, max_records, max_len)
+        if not counted == int(n_rec) == reads <= max_records:
+            raise AssertionError(
+                "device_parse: chunk at %d: raw_stream_qc %d reads, "
+                "count_records_device %d, parse_fastq_device %d (rows %d)"
+                % (pos, reads, counted, int(n_rec), max_records))
+        if bool((codes != 0).any()):
+            raise AssertionError("device_parse: nonzero structure codes")
+        tot["reads"] += reads
+        tot["bases"] += int(raw.bases)
+        tot["base_counts"] += raw.base_counts.cpu().numpy()
+        tot["qual_hist"] += raw.qual_hist.cpu().numpy()
+        local = sample[(sample >= rec0) & (sample < rec0 + reads)] - rec0
+        idx = torch.from_numpy(local).cuda()
+        rows.append([t.index_select(0, idx).cpu().numpy()
+                     for t in (seq, qual, lengths)])
+        del seq, qual, lengths, codes
+        rec0 += reads
+        pos += tail
+        chunks += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    host_reads, host_bases = bt.FastqParser(bt.open_reader(path)).count()
+    want = dict(reads=host_reads, bases=host_bases,
+                base_counts=oracle["base_counts"],
+                qual_hist=oracle["qual_hist"])
+    for k, v in want.items():
+        if not np.array_equal(tot[k], v):
+            raise AssertionError("device_parse: %s %r, want %r"
+                                 % (k, tot[k], v))
+    if host_reads != n_total or host_bases != oracle["bases"]:
+        raise AssertionError("device_parse: the host parser counts %d "
+                             "reads / %d bases, the generator %d / %d"
+                             % (host_reads, host_bases, n_total,
+                                oracle["bases"]))
+    seq, qual, lengths = (np.concatenate(c) for c in zip(*rows))
+    for k, i in enumerate(sample.tolist()):
+        r = bt.FastqParser(bt.MemoryReader(
+            bytes(data[starts[i]:starts[i + 1]]))).next_batch(1)
+        r = r.get_record(0)
+        L = int(lengths[k])
+        if (L != len(r) or seq[k, :L].tobytes() != r.sequence_bytes()
+                or qual[k, :L].tobytes() != r.quality_bytes()
+                or seq[k, L:].any() or qual[k, L:].any()):
+            raise AssertionError("device_parse: record %d differs from the "
+                                 "host parser's" % i)
+    # one corruption in a small copy
+    bad = np.array(data[:starts[4000]])
+    bad[starts[1234]] = ord("X")
+    c = torch.from_numpy(bad).cuda()
+    _, _, _, n_rec, codes = parse_fastq_device(c, 4096, max_len)
+    codes = codes.cpu().numpy()
+    if (int(n_rec) != 4000 or codes[1234] != 1
+            or np.count_nonzero(codes) != 1
+            or not bool(raw_stream_qc(c, 33, 126, 33).bad_structure)):
+        raise AssertionError("device_parse: the planted '@' -> 'X' gave "
+                             "codes %s" % np.flatnonzero(codes))
+    del data
+    os.unlink(path)
+    size = oracle["bytes"]
+    log("device_parse: %d bytes, %d reads, %d bases in %d chunks: %.3f s "
+        "wall, %.3f GB/s; totals == host parser, composition and Phred "
+        "histogram == generator, %d sampled rows == host parser, planted "
+        "corruption -> code 1" % (size, tot["reads"], tot["bases"], chunks,
+                                  wall, size / wall / 1e9, TWIN_SAMPLE))
+    return dict(bytes=size, reads=tot["reads"], wall_s=wall,
+                gbps=size / wall / 1e9)
+
+
+def _cli(argv, device, out_dir):
+    """Run the port's CLI in-process; returns its stdout (out_dir masked),
+    its output files' bytes and its wall time."""
+    import contextlib
+    import io
+
+    import torch
+
+    from blazeseq_tpu_torch.__main__ import main as cli_main
+
+    os.makedirs(out_dir, exist_ok=True)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError("cli %s: exit %d" % (argv[0], rc))
+    blobs = {}
+    for root, _, names in os.walk(out_dir):
+        for name in names:
+            p = os.path.join(root, name)
+            with open(p, "rb") as f:
+                blobs[os.path.relpath(p, out_dir)] = f.read()
+    return buf.getvalue().replace(out_dir, "{out}"), blobs, wall
+
+
+def _head_records(path, k):
+    """(id, seq, qual) of the first k records of a FASTQ file."""
+    import blazeseq_tpu as bt
+
+    with open(path, "rb") as f:
+        head = f.read(k * 4096)
+    nl = np.flatnonzero(np.frombuffer(head, np.uint8) == 10)
+    if len(nl) >= 4 * k > 0:
+        head = head[:nl[4 * k - 1] + 1]  # whole records only
+    b = bt.FastqParser(bt.MemoryReader(head)).next_batch(k)
+    return [(r.id_bytes(), r.sequence_bytes(), r.quality_bytes())
+            for r in (b.get_record(i) for i in range(min(k, len(b))))]
+
+
+CLI_COMMANDS = (
+    ("stats", ["stats", "{in}"]),
+    ("stats --device", ["stats", "--device", "{in}"]),
+    ("trim window", ["trim", "--mode", "window", "--out", "{out}/t.fastq",
+                     "{in}"]),
+    ("trim bwa", ["trim", "--mode", "bwa", "--out", "{out}/t.fastq", "{in}"]),
+    ("trim ends", ["trim", "--mode", "ends", "--out", "{out}/t.fastq",
+                   "{in}"]),
+    ("demux", ["demux"] + [a for i, b in enumerate(DEMUX_BARCODES)
+                           for a in ("--barcode", "s%d=%s" % (i, b.decode()))]
+     + ["--mismatches", "1", "--out", "{out}/dm", "{in}"]),
+    ("merge", ["merge", "--out", "{out}/m.fastq", "{r1}", "{r2}"]),
+    ("tiles", ["tiles", "{in}"]),
+)
+
+
+def _cli_twin_check(name, files, oracle, text, out_dir):
+    """The full-file run's totals against the host count and the oracle,
+    and its output for the first TWIN_SAMPLE reads (or pairs) against the
+    host twins."""
+    import blazeseq_tpu as bt
+    from blazeseq_tpu_torch.ops import demux, merge, trim
+
+    head = _head_records(files["align"], TWIN_SAMPLE)
+    if name.startswith("stats"):
+        bases = oracle["base_pp"].sum(1)
+        gc = float(bases[1] + bases[2]) / (ALIGN_READS * READ_LEN)
+        mq = float(np.sum(oracle["qual_hist"] * np.arange(64))) / (
+            ALIGN_READS * READ_LEN)
+        want = "reads=%d, bases=%d, errors=0, gc=%.4f, meanQ=%.2f" % (
+            ALIGN_READS, ALIGN_READS * READ_LEN, gc, mq)
+        if want not in text:
+            raise AssertionError("cli %s: %r lacks %r" % (name, text, want))
+    elif name.startswith("trim"):
+        mode = name.split()[1]
+        want_line = "reads %d -> kept" % ALIGN_READS
+        if want_line not in text or "bases %d ->" % (
+                ALIGN_READS * READ_LEN) not in text:
+            raise AssertionError("cli %s: %r" % (name, text))
+        expect = []
+        for rid, s, q in head:
+            if mode == "window":
+                st, ln = 0, trim.sliding_window_trim_cpu(q, 33, 15, 4)
+            elif mode == "bwa":
+                st, ln = 0, trim.bwa_trim_cpu(q, 33, 20)
+            else:
+                st, ln = trim.clip_ends_cpu(q, 33, 3, 3)
+            if ln > 0:
+                expect.append((rid, s[st:st + ln], q[st:st + ln]))
+        got = _head_records(os.path.join(out_dir, "t.fastq"), len(expect))
+        if got != expect:
+            raise AssertionError("cli %s: the first %d reads differ from the "
+                                 "host twin" % (name, TWIN_SAMPLE))
+    elif name == "demux":
+        counts = [int(line.rsplit("\t", 1)[1]) for line in text.splitlines()]
+        if sum(counts) != ALIGN_READS or len(counts) != 5:
+            raise AssertionError("cli demux: %r" % text)
+        a = demux.demux_assign_host([s for _, s, _ in head], DEMUX_BARCODES,
+                                    1)
+        for k, sample in enumerate(["s%d" % i for i in range(4)]
+                                   + ["unassigned"]):
+            want = [r for r, x in zip(head, a) if x == (k if k < 4 else -1)]
+            got = _head_records(os.path.join(out_dir, "dm",
+                                             sample + ".fastq"), len(want))
+            if got != want:
+                raise AssertionError("cli demux: %s differs from the host "
+                                     "twin" % sample)
+    elif name == "merge":
+        if "pairs %d\t" % MATE_PAIRS not in text:
+            raise AssertionError("cli merge: %r" % text)
+        r1 = _head_records(files["r1"], TWIN_SAMPLE)
+        r2 = _head_records(files["r2"], TWIN_SAMPLE)
+        host = merge.merge_pairs_host([x[1:] for x in r1],
+                                      [x[1:] for x in r2])
+        want = [(a[0], s, q) for a, (o, s, q) in zip(r1, host) if o]
+        got = _head_records(os.path.join(out_dir, "m.fastq"), len(want))
+        if got != want:
+            raise AssertionError("cli merge: the first pairs differ from "
+                                 "the host twin")
+    elif name == "tiles":
+        cnt = oracle["tile_reads"].astype(np.float64)[:, None]
+        mean = oracle["tile_pp"] / cnt
+        dev = mean - oracle["tile_pp"].sum(0) / cnt.sum()
+        want = ["%s\ttile %d\tmeanQ %.2f\tmax|dev| %.2f"
+                % (files["align"], t, float(mean[k].mean()),
+                   float(np.nanmax(np.abs(dev[k]))))
+                for k, t in enumerate(TILES)]
+        if text.splitlines() != want:
+            raise AssertionError("cli tiles: %r, want %r" % (text, want))
+
+
+def phase_cli(files, oracle, tmp):
+    """python -m blazeseq_tpu_torch in-process with device="cuda": stats,
+    stats --device, trim in three modes, demux --mismatches 1, merge and
+    tiles on the 1M-read file (merge on MATE_PAIRS pairs), each checked
+    against the host twins; then each on the 20,000-read (pair) prefix on
+    the card and on the CPU, stdout and output files byte-equal."""
+    times = {}
+    for name, argv in CLI_COMMANDS:
+        full = os.path.join(tmp, "cli_full")
+        args = [a.format(out=full, **{"in": files["align"], "r1": files["r1"],
+                                      "r2": files["r2"]}) for a in argv]
+        text, _, wall = _cli(args, "cuda", full)
+        _cli_twin_check(name, files, oracle, text, full)
+        shutil.rmtree(full)
+        outs = {}
+        for device in ("cuda", "cpu"):
+            d = os.path.join(tmp, "cli_" + device)
+            args = [a.format(out=d, **{"in": files["align_prefix"],
+                                       "r1": files["r1_prefix"],
+                                       "r2": files["r2_prefix"]})
+                    for a in argv]
+            outs[device] = _cli(args, device, d)
+            shutil.rmtree(d)
+        if outs["cuda"][:2] != outs["cpu"][:2]:
+            raise AssertionError("cli %s: the prefix run on the card differs "
+                                 "from the CPU's" % name)
+        times[name] = wall
+        log("cli %s: %.3f s on the full file; prefix: cuda == cpu (%d "
+            "output files, cpu %.1f s)" % (name, wall, len(outs["cpu"][1]),
+                                            outs["cpu"][2]))
+    return times
 
 
 def run_path(name, fn, kernels):
@@ -698,11 +1182,12 @@ def main(argv=None):
     t_start = time.perf_counter()
     name, smi = phase_card()
     from blazeseq_tpu_torch.ops.nw import nw_scores
+    from blazeseq_tpu_torch.ops.scan import structural_bitmaps
     from blazeseq_tpu_torch.ops.uniform_qc import uniform_qc
     from blazeseq_tpu_torch.ops.validate import validate_decode
 
     kernels = dict(uniform_qc=uniform_qc, validate_decode=validate_decode,
-                   nw_scores=nw_scores)
+                   nw_scores=nw_scores, structural_bitmaps=structural_bitmaps)
     phase_build()
     torch.cuda.synchronize()
     ka = phase_kernel_a(args.seed)
@@ -711,20 +1196,29 @@ def main(argv=None):
     torch.cuda.synchronize()
     knw, nw_times = phase_kernel_nw(args.seed)
     torch.cuda.synchronize()
+    kscan = phase_kernel_scan(args.seed)
+    torch.cuda.synchronize()
     # each path: (name, phase, the kernels it must launch)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    align = {}
     paths = [
         ("run_file_device", lambda: phase_main_path(args.seed, tmp),
          ("uniform_qc",)),
         ("fallback", lambda: phase_fallback(args.seed, tmp),
          ("validate_decode",)),
         ("NWAligner", phase_aligner, ("nw_scores",)),
-        ("run_file(align_to)", lambda: phase_align_run_file(args.seed, tmp),
+        ("run_file(align_to)",
+         lambda: phase_align_run_file(args.seed, *align["corpus"]),
          ("validate_decode", "nw_scores")),
+        ("device_parse", lambda: phase_device_parse(args.seed, tmp),
+         ("structural_bitmaps",)),
+        ("cli", lambda: phase_cli(*align["corpus"], tmp),
+         ("uniform_qc", "validate_decode")),
     ]
     e2e = {}
     launches = dict.fromkeys(kernels, 0)
     try:
+        align["corpus"] = make_align_corpus(args.seed, tmp)
         for path_name, fn, needed in paths:
             e2e[path_name], got = run_path(path_name, fn, kernels)
             for k in needed:
@@ -749,6 +1243,10 @@ def main(argv=None):
         dict(name="nw_scores", route="cuda", source=KERNEL_NW_SOURCE,
              replaces="blazeseq_tpu/ops/nw.py:174",
              launches=launches["nw_scores"], **knw),
+        dict(name="structural_bitmaps", route="cuda",
+             source=KERNEL_SCAN_SOURCE,
+             replaces="blazeseq_tpu/ops/scan.py:78",
+             launches=launches["structural_bitmaps"], **kscan),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -77,12 +77,28 @@ def test_sources_compile_together_then_link(fake_nvcc):
     assert os.listdir(out_dir) == [_kernels.LIB_NAME]
 
 
+def test_every_kernel_source_is_built_and_bound():
+    assert _kernels.SOURCES == ("validate.cu", "uniform_qc.cu", "nw.cu",
+                                "scan.cu")
+    for name in _kernels.SOURCES:
+        assert os.path.exists(os.path.join(_kernels.CSRC, name))
+    # one C entry point per kernel source, each with its argument types
+    entries = {"validate.cu": "bs_validate_decode",
+               "uniform_qc.cu": "bs_uniform_qc", "nw.cu": "bs_nw_scores",
+               "scan.cu": "bs_structural_bitmaps"}
+    for source, entry in entries.items():
+        assert entry in _kernels._SIGNATURES
+        with open(os.path.join(_kernels.CSRC, source)) as f:
+            assert 'extern "C" int %s(' % entry in f.read()
+
+
 def test_failed_compile_raises_and_leaves_no_library(fake_nvcc,
                                                      monkeypatch):
-    monkeypatch.setenv("FAKE_NVCC_FAIL", "nw.cu")
-    with pytest.raises(RuntimeError, match="stand-in failure"):
-        _kernels.build()
-    out_dir = os.path.join(_kernels.BUILD_DIR, _kernels._source_hash())
-    assert os.listdir(out_dir) == []
+    for failing in _kernels.SOURCES:
+        monkeypatch.setenv("FAKE_NVCC_FAIL", failing)
+        with pytest.raises(RuntimeError, match="stand-in failure"):
+            _kernels.build()
+        out_dir = os.path.join(_kernels.BUILD_DIR, _kernels._source_hash())
+        assert os.listdir(out_dir) == []
     # no link was attempted
     assert all(e[1] for e in _events(fake_nvcc))
