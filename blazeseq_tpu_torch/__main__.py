@@ -32,7 +32,7 @@ those of `python -m blazeseq_tpu`:
 `--torch-device` picks where stats, demux, trim, merge and tiles run:
 "cuda" (the default) needs a CUDA card and raises without one; "cpu" runs
 the plain torch versions of the kernels. count, fasta-count, faidx, fetch,
-fqidx and filter are host-only and run the reference's commands.
+fqidx and filter are host-only.
 """
 
 from __future__ import annotations
@@ -92,7 +92,7 @@ def _stats(args, dev):
         report = (qc.run_file_device(path) if device_ingest
                   else qc.run_file(path))
         if html_out:
-            from blazeseq_tpu.report import write_html
+            from .report import write_html
 
             out = html_out if len(paths) == 1 else \
                 "%s.%s.html" % (html_out.rsplit(".html", 1)[0],
@@ -121,9 +121,9 @@ def _stats(args, dev):
 
 def _demux(args, dev):
     """demux --barcode NAME=SEQ [...] [--mismatches K] [--out DIR] FILE"""
-    import blazeseq_tpu as bt
-    from blazeseq_tpu.io.writers import BufferedWriter, FileWriter
-
+    from .fastq.parser import FastqParser
+    from .io.readers import open_reader
+    from .io.writers import BufferedWriter, FileWriter
     from .ops.demux import demultiplex_to_writers
 
     usage = ("usage: demux --barcode NAME=SEQ [...] [--mismatches K]"
@@ -161,7 +161,7 @@ def _demux(args, dev):
             os.path.join(out_dir, "%s.fastq" % n))) for n in names]
         un = BufferedWriter(FileWriter(
             os.path.join(out_dir, "unassigned.fastq")))
-        parser = bt.FastqParser(bt.open_reader(path))
+        parser = FastqParser(open_reader(path))
         totals = demultiplex_to_writers(parser, codes, writers,
                                         unassigned_writer=un,
                                         max_mismatches=max_mm, device=dev)
@@ -175,11 +175,10 @@ def _trim(args, dev):
     """trim [--mode window|bwa|ends] [--q N] [--window N] [--out FILE] FILE"""
     import numpy as np
 
-    import blazeseq_tpu as bt
-    from blazeseq_tpu.fastq.batch import serialize_fastq_rows
-    from blazeseq_tpu.io.writers import BufferedWriter, FileWriter
-
-    from .fastq.batch import padded_to_device
+    from .fastq.batch import padded_to_device, serialize_fastq_rows
+    from .fastq.parser import FastqParser
+    from .io.readers import open_reader
+    from .io.writers import BufferedWriter, FileWriter
     from .ops import trim as trim_ops
 
     mode, q, window, out_path = "window", None, 4, None
@@ -207,7 +206,7 @@ def _trim(args, dev):
     # one writer across all inputs (FileWriter truncates on open)
     w = BufferedWriter(FileWriter(out_path)) if out_path else None
     for path in paths:
-        parser = bt.FastqParser(bt.open_reader(path))
+        parser = FastqParser(open_reader(path))
         off = parser.quality_schema.OFFSET
         total = kept = 0
         bases_in = bases_out = 0
@@ -252,11 +251,11 @@ def _merge(args, dev):
        merge --interleaved [--min-overlap N] [--out FILE] FILE"""
     import numpy as np
 
-    import blazeseq_tpu as bt
-    from blazeseq_tpu.fastq.batch import serialize_fastq_rows
-    from blazeseq_tpu.io.writers import BufferedWriter, FileWriter
-
-    from .fastq.batch import padded_to_device
+    from .fastq.batch import (FastqBatch, padded_to_device,
+                              serialize_fastq_rows)
+    from .fastq.parser import FastqParser
+    from .io.readers import open_reader
+    from .io.writers import BufferedWriter, FileWriter
     from .ops.merge import merge_pairs
 
     min_ov, out_path, inter = 10, None, False
@@ -284,7 +283,7 @@ def _merge(args, dev):
     if inter:
         # one batch scan split by record parity; like the two-file path, no
         # per-pair id check (InterleavedFastqParser.pairs() does that)
-        ip = bt.FastqParser(bt.open_reader(paths[0]))
+        ip = FastqParser(open_reader(paths[0]))
 
         def next_batch_pair():
             b = ip.next_batch(8192)
@@ -294,11 +293,11 @@ def _merge(args, dev):
                       "R1", file=sys.stderr)
                 raise SystemExit(1)
             if n == 0:
-                return bt.FastqBatch(), bt.FastqBatch()
+                return FastqBatch(), FastqBatch()
             return b.deinterleave()
     else:
-        p1 = bt.FastqParser(bt.open_reader(paths[0]))
-        p2 = bt.FastqParser(bt.open_reader(paths[1]))
+        p1 = FastqParser(open_reader(paths[0]))
+        p2 = FastqParser(open_reader(paths[1]))
 
         def next_batch_pair():
             return p1.next_batch(4096), p2.next_batch(4096)
@@ -344,16 +343,16 @@ def _merge(args, dev):
 def _tiles(args, dev):
     import numpy as np
 
-    import blazeseq_tpu as bt
-
     from .fastq.batch import padded_to_device
+    from .fastq.parser import FastqParser
+    from .io.readers import open_reader
     from .ops.tiles import PerTileAccumulator, parse_illumina_tiles
 
     if not args:
         print("usage: tiles FILE [...]", file=sys.stderr)
         raise SystemExit(2)
     for path in args:
-        parser = bt.FastqParser(bt.open_reader(path))
+        parser = FastqParser(open_reader(path))
         off = parser.quality_schema.OFFSET
         acc = PerTileAccumulator()
         for batch in parser.batches(4096):
@@ -378,6 +377,165 @@ def _tiles(args, dev):
                      else float("nan")))
 
 
+def _count(args):
+    from .fastq.parser import FastqParser
+    from .io.readers import open_reader
+
+    for path in args:
+        p = FastqParser(open_reader(path))
+        records, bases = p.count()
+        print("%s\t%d\t%d" % (path, records, bases))
+
+
+def _fasta_count(args):
+    from .fasta.parser import FastaParser
+    from .io.readers import open_reader
+
+    for path in args:
+        p = FastaParser(open_reader(path))
+        records, bases = p.count()
+        print("%s\t%d\t%d" % (path, records, bases))
+
+
+def _faidx(args):
+    from .fai.parser import build_fai, write_fai
+    from .io.readers import FileReader
+    from .io.writers import BufferedWriter, FileWriter
+
+    for path in args:
+        recs = build_fai(FileReader(path))
+        w = BufferedWriter(FileWriter(path + ".fai"))
+        write_fai(recs, w)
+        w.close()
+        print("wrote %s.fai (%d sequences)" % (path, len(recs)))
+
+
+def _fqidx(args):
+    """fqidx [--stride N] [--fetch START [--count K]] FILE [...]"""
+    from .fastq.index import IndexedFastq, build_fqi, write_fqi
+
+    stride, fetch_start, count, paths = 10_000, None, 1, []
+    it = iter(args)
+    for a in it:
+        if a == "--stride":
+            stride = int(next(it))
+        elif a == "--fetch":
+            fetch_start = int(next(it))
+        elif a == "--count":
+            count = int(next(it))
+        else:
+            paths.append(a)
+    if not paths:
+        print("usage: fqidx [--stride N] [--fetch START [--count K]] FILE",
+              file=sys.stderr)
+        raise SystemExit(2)
+    for path in paths:
+        if fetch_start is None:
+            ix = build_fqi(path, stride=stride)
+            write_fqi(ix, path + ".fqi")
+            print("wrote %s.fqi (%d records, %d bases, %d checkpoints)"
+                  % (path, ix.n_records, ix.n_bases, len(ix.offsets)))
+        else:
+            with IndexedFastq(path, stride=stride) as ix:
+                out = sys.stdout.buffer
+                for rec in ix.fetch(fetch_start, count):
+                    out.write(rec.to_bytes())
+
+
+def _fetch(args):
+    from .fai.parser import IndexedFasta
+
+    path, name = args[0], args[1]
+    start = int(args[2]) if len(args) > 2 else 0
+    end = int(args[3]) if len(args) > 3 else None
+    with IndexedFasta(path) as ix:
+        sys.stdout.write(ix.fetch(name, start, end).decode("ascii"))
+        sys.stdout.write("\n")
+
+
+def _filter(args):
+    """filter [--min-len N] [--max-len N] [--min-q Q] [--fraction F]
+    [--seed S] [--out FILE] FILE [...]
+
+    Length / mean-quality / random-subsample read filtering (the
+    seqkit/fastp basics), written through the bulk serializer."""
+    import numpy as np
+
+    from .fastq.batch import serialize_fastq_soa
+    from .fastq.parser import FastqParser
+    from .io.readers import open_reader
+    from .io.writers import BufferedWriter, FileWriter
+
+    min_len = max_len = min_q = frac = None
+    seed = 0
+    out_path = None
+    paths = []
+    it = iter(args)
+    for a in it:
+        try:
+            if a == "--min-len":
+                min_len = int(next(it))
+            elif a == "--max-len":
+                max_len = int(next(it))
+            elif a == "--min-q":
+                min_q = float(next(it))
+            elif a == "--fraction":
+                frac = float(next(it))
+            elif a == "--seed":
+                seed = int(next(it))
+            elif a == "--out":
+                out_path = next(it)
+            else:
+                paths.append(a)
+        except StopIteration:
+            paths = []
+            break
+    if not paths:
+        print("usage: filter [--min-len N] [--max-len N] [--min-q Q]"
+              " [--fraction F] [--seed S] [--out FILE] FILE",
+              file=sys.stderr)
+        raise SystemExit(2)
+    rng = np.random.default_rng(seed)
+    w = BufferedWriter(FileWriter(out_path)) if out_path else None
+    for path in paths:
+        parser = FastqParser(open_reader(path))
+        off = parser.quality_schema.OFFSET
+        total = kept = 0
+        for batch in parser.batches(8192):
+            batch._finalize()
+            ends = batch._ends
+            starts = np.concatenate(([0], ends[:-1]))
+            lens = (ends - starts).astype(np.int64)
+            keep = np.ones(len(lens), bool)
+            if min_len is not None:
+                keep &= lens >= min_len
+            if max_len is not None:
+                keep &= lens <= max_len
+            if min_q is not None:
+                # exact mean phred per read from the SoA quality bytes
+                q64 = batch._quality_bytes.astype(np.int64)
+                sums = np.add.reduceat(q64, starts.clip(max=max(
+                    len(q64) - 1, 0))) if len(q64) else np.zeros(0)
+                sums = np.where(lens > 0, sums, 0)
+                mean = np.where(lens > 0,
+                                (sums - off * lens) / np.maximum(lens, 1),
+                                0.0)
+                keep &= mean >= min_q
+            if frac is not None:
+                keep &= rng.random(len(lens)) < frac
+            total += len(lens)
+            kept += int(keep.sum())
+            if w is not None and keep.any():
+                w.write_bytes(serialize_fastq_soa(
+                    batch._id_bytes, batch._id_ends,
+                    batch._sequence_bytes, batch._quality_bytes, ends,
+                    sub_start=np.zeros(len(lens), np.int64),
+                    sub_len=np.where(keep, lens, 0)))
+        print("%s\treads %d -> kept %d" % (path, total, kept))
+    if w is not None:
+        w.close()
+
+
 # the device commands take the resolved torch device
 _DEVICE_COMMANDS = {
     "stats": _stats,
@@ -386,15 +544,15 @@ _DEVICE_COMMANDS = {
     "merge": _merge,
     "tiles": _tiles,
 }
-_HOST_COMMANDS = ("count", "fasta-count", "faidx", "fetch", "fqidx",
-                  "filter")
-
-
-def _host_command(name):
-    """The reference's own host-only command function."""
-    from blazeseq_tpu import __main__ as ref
-
-    return ref._COMMANDS[name]
+# the host-only commands need no device
+_HOST_COMMANDS = {
+    "count": _count,
+    "fasta-count": _fasta_count,
+    "faidx": _faidx,
+    "fetch": _fetch,
+    "fqidx": _fqidx,
+    "filter": _filter,
+}
 
 
 def main(argv=None, device="cuda"):
@@ -420,7 +578,7 @@ def main(argv=None, device="cuda"):
         _DEVICE_COMMANDS[cmd](args, resolve_device(device,
                                                    "blazeseq_tpu_torch"))
     else:
-        _host_command(cmd)(args)
+        _HOST_COMMANDS[cmd](args)
     return 0
 
 

@@ -29,6 +29,8 @@ SOURCES = ("validate.cu", "uniform_qc.cu", "nw.cu", "scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "libblazeseq_kernels.so"
+# dynamic shared memory one block may use on sm_90
+MAX_SMEM = 232448
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,13 +41,17 @@ _SIGNATURES = {
     "bs_validate_decode": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
                            _I, _I, _P),
     # chunk, nrec_valid, rs, o1, o2, o3, cnt, q_lo, q_hi, offset,
-    # check_ascii, check_quality, bad, csq, csb, qh, gch, mqh, max_blocks,
+    # check_ascii, check_quality, bad, csq, csb, qh, gch, mqh, sm_count,
     # stream
     "bs_uniform_qc": (_P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                       _P, _P, _P, _P, _P, _I, _P),
-    "bs_uniform_qc_smem_bytes": (_I,),
-    # seq, lengths, ref, scores, scratch, B, Lq, Lr, stream
-    "bs_nw_scores": (_P, _P, _P, _P, _P, _LL, _I, _I, _P),
+    # rs, cnt
+    "bs_uniform_qc_smem_bytes": (_I, _I),
+    # rs
+    "bs_uniform_qc_tile_rows": (_I,),
+    # seq, lengths, ref, scores, B, Lq, Lr, stream
+    "bs_nw_scores": (_P, _P, _P, _P, _LL, _I, _I, _P),
+    "bs_nw_smem_bytes": (_I, _I),
     # chunk, nl, at, plus, counts, rows, max_blocks, stream
     "bs_structural_bitmaps": (_P, _P, _P, _P, _P, _LL, _I, _P),
 }

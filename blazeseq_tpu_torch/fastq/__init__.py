@@ -1,2 +1,2 @@
-"""Device half of the FASTQ batch layer (the host half is imported from
-blazeseq_tpu.fastq unchanged)."""
+"""The FASTQ host layer (parser, records, quality schemas, index, paired
+readers) and the batch layer with its device upload."""

@@ -15,8 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from blazeseq_tpu.fastq.batch import FastqBatch, PaddedFastqBatch
-
+from ..fastq.batch import FastqBatch, PaddedFastqBatch
 from ..ops import nw as nw_ops
 from ..ops.common import resolve_device
 

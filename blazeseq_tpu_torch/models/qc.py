@@ -29,18 +29,17 @@ from typing import Optional
 import numpy as np
 import torch
 
-from blazeseq_tpu.constants import DEFAULT_BATCH_SIZE
-from blazeseq_tpu.fastq.parser import FastqParser, ParserConfig
-from blazeseq_tpu.fastq.quality import QualitySchema, parse_schema
-from blazeseq_tpu.io.readers import MemoryReader, MmapReader, open_reader
-
+from ..constants import DEFAULT_BATCH_SIZE
+from ..fastq.parser import FastqParser, ParserConfig
+from ..fastq.quality import QualitySchema, parse_schema
+from ..io.readers import MemoryReader, MmapReader, open_reader
 from ..ops.adapter import adapter_content
 from ..ops.common import resolve_device, round_up
 from ..ops.dedup import (duplication_levels, overrepresented_sequences,
                          read_hashes)
 from ..ops.stats import MAX_PHRED, QCAccumulator, zero_stats
 from ..ops.uniform_parse import detect_uniform_layout
-from ..ops.uniform_qc import uniform_qc
+from ..ops.uniform_qc import kernel_takes, uniform_qc
 from ..parallel.ingest import OverlappedIngest
 from ..parallel.pipeline import build_qc_align_step
 
@@ -203,7 +202,7 @@ class QCModel:
 
     def _resolve_auto_schema(self, path) -> None:
         if self._auto_schema:
-            from blazeseq_tpu.fastq.quality import detect_quality_schema_file
+            from ..fastq.quality import detect_quality_schema_file
 
             self.schema = detect_quality_schema_file(str(path))
             self._auto_schema = False  # one corpus per model instance
@@ -325,7 +324,9 @@ class QCModel:
             self._host_consume(self._parser(reader), acc)
             return self._report_from_acc(acc)
         lay = detect_uniform_layout(data)
-        if lay is None or lay.rs > chunk_mb << 19:
+        if lay is None or lay.rs > chunk_mb << 19 or (
+                self.device.type == "cuda" and not kernel_takes(
+                    lay.rs, min(lay.seq_len, self.max_read_len))):
             self._host_consume(self._parser(MemoryReader(data)), acc)
             return self._report_from_acc(acc)
         total = len(data)

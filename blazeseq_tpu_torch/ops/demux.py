@@ -99,8 +99,7 @@ def demultiplex_to_writers(parser, barcodes: Sequence[bytes], writers,
     (+ unassigned last)."""
     if len(writers) != len(barcodes):
         raise ValueError("one writer per barcode required")
-    from blazeseq_tpu import native
-
+    from .. import native
     from ..fastq.batch import padded_to_device
 
     dev = resolve_device(device, "demultiplex_to_writers")
@@ -137,7 +136,7 @@ def demultiplex_to_writers(parser, barcodes: Sequence[bytes], writers,
                     # a read exactly the barcode's length trims to an empty
                     # record, which the bulk serialiser drops: write
                     # "@id\n\n+\n\n" as the reference does
-                    from blazeseq_tpu.fastq.record import FastqRecord
+                    from ..fastq.record import FastqRecord
 
                     for i in np.flatnonzero(m):
                         rec = batch.get_record(int(i))

@@ -382,13 +382,14 @@ def _nw_scores_cuda(seq, lengths, ref):
     lib = _kernels.load()
     B, Lq = seq.shape
     Lr = int(ref.shape[0])
+    if lib.bs_nw_smem_bytes(Lq, Lr) > _kernels.MAX_SMEM:
+        raise ValueError("nw_scores: reads of width %d against a %d-byte "
+                         "reference exceed the kernel's shared memory"
+                         % (Lq, Lr))
     scores = torch.empty(B, dtype=torch.int32, device=seq.device)
-    # the boundary column handed from one reference tile to the next
-    scratch = torch.empty((Lq + 1, B), dtype=torch.int32, device=seq.device)
     with torch.cuda.device(seq.device):
         err = lib.bs_nw_scores(seq.data_ptr(), lengths.data_ptr(),
-                               ref.data_ptr(), scores.data_ptr(),
-                               scratch.data_ptr(), B, Lq, Lr,
+                               ref.data_ptr(), scores.data_ptr(), B, Lq, Lr,
                                _kernels.stream_ptr(seq.device))
     _kernels.check(err, "bs_nw_scores")
     nw_scores.launches += 1

@@ -25,8 +25,6 @@ from .common import AT, NEWLINE, PLUS
 from .stats import GC_BINS, LEN_BINS, MAX_PHRED, QCStats, bin_counts
 
 _BASES = b"ACGT"
-# dynamic shared memory one block may use on sm_90
-_MAX_SMEM = 232448
 
 
 def _uniform_qc_raw_torch(r2, nrec_valid, *, rs, o1, o2, o3, cnt, q_lo,
@@ -70,10 +68,14 @@ def _uniform_qc_raw_cuda(r2, nrec_valid, *, rs, o1, o2, o3, cnt, q_lo, q_hi,
                          % r2.device)
     if not r2.is_contiguous():
         raise ValueError("uniform_qc: chunk must be contiguous")
+    if not kernel_takes(rs, cnt):
+        raise ValueError("uniform_qc: records of %d bytes with a stats "
+                         "window of %d columns exceed the kernel's shared "
+                         "memory" % (rs, cnt))
+    if r2.data_ptr() % 16:
+        # the kernel's bulk copies need a 16-byte aligned chunk
+        r2 = r2.clone()
     lib = _kernels.load()
-    if lib.bs_uniform_qc_smem_bytes(cnt) > _MAX_SMEM:
-        raise ValueError("uniform_qc: stats window of %d columns exceeds "
-                         "the kernel's shared memory" % cnt)
     dev = r2.device
     # one zeroed allocation holds every output; the kernel adds into it
     out = torch.zeros(1 + 5 * cnt + 2 * MAX_PHRED + GC_BINS,
@@ -85,11 +87,19 @@ def _uniform_qc_raw_cuda(r2, nrec_valid, *, rs, o1, o2, o3, cnt, q_lo, q_hi,
             r2.data_ptr(), nrec_valid, rs, o1, o2, o3, cnt, q_lo, q_hi,
             offset, int(bool(check_ascii)), int(bool(check_quality)),
             bad.data_ptr(), csq.data_ptr(), csb.data_ptr(), qh.data_ptr(),
-            gch.data_ptr(), mqh.data_ptr(),
-            2 * _kernels.sm_count(dev.index), _kernels.stream_ptr(dev))
+            gch.data_ptr(), mqh.data_ptr(), _kernels.sm_count(dev.index),
+            _kernels.stream_ptr(dev))
     _kernels.check(err, "bs_uniform_qc")
     uniform_qc.launches += 1
     return bad, csq, csb.view(4, cnt), qh, gch, mqh
+
+
+def kernel_takes(rs: int, cnt: int) -> bool:
+    """Whether the kernel takes records of `rs` bytes with a stats window of
+    `cnt` columns (at most 512, and a ring of tiles that fits in one
+    block's shared memory)."""
+    need = _kernels.load().bs_uniform_qc_smem_bytes(rs, cnt)
+    return 0 < need <= _kernels.MAX_SMEM
 
 
 def _assemble(raw, nrec_valid, seq_len, cnt, width, hist_vals):

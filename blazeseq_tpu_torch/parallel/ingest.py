@@ -36,7 +36,7 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from blazeseq_tpu import native
+from .. import native
 
 
 class OverlappedIngest:

@@ -93,6 +93,17 @@ MATE_PAIRS = 250_000
 FRAG_LEN = 200
 MATE_HEADER = b"@P0000000/1"
 _COMP_LUT = np.frombuffer(b"TGCA", np.uint8)  # complement of draws 0..3
+# Bounds (the least time the card could take for a kernel's work): the
+# bytes it must move (each input read once, each output written once) over
+# the H100 SXM's HBM3 rate, or its integer operations over the int32 peak of
+# the SM's 64 INT32 lanes at the 1.98 GHz boost clock, whichever is larger.
+HBM_BYTES_PER_S = 3.35e12
+INT32_LANES_PER_SM = 64
+BOOST_CLOCK_HZ = 1.98e9
+# the NW recurrence per DP cell, in the form D = dp + i + j that the kernel
+# runs: a compare and a select for the match term, one DPX add-max
+# (__viaddmax_s32) for max(diag + s, up) and one max with the left cell
+NW_OPS_PER_CELL = 4
 
 
 def log(*a):
@@ -345,6 +356,24 @@ def cuda_ms(fn, inner=10, trials=5):
     return float(np.median(times))
 
 
+def bound(n_bytes, ops):
+    """bound_ms / bound_by of a kernel call that must move `n_bytes` and do
+    `ops` int32 operations on this card."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = ops / (sms * INT32_LANES_PER_SM * BOOST_CLOCK_HZ)
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors):
+    """Bytes of the tensors (None skipped): each read or written once."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
 def max_abs_diff(xs, ys, label):
     """Largest |x - y| over paired integer tensors (None pairs skipped);
     raises when it is not 0."""
@@ -397,7 +426,7 @@ def phase_kernel_a(seed):
     """Kernel A (validate) against its plain version on the card."""
     import torch
 
-    from blazeseq_tpu.fastq.quality import parse_schema
+    from blazeseq_tpu_torch import parse_schema
     from blazeseq_tpu_torch.ops.validate import (validate_decode,
                                                  validate_decode_torch)
 
@@ -436,9 +465,14 @@ def phase_kernel_a(seed):
             plain_ms = cuda_ms(lambda: validate_decode_torch(
                 dseq, dqual, dlen, schema.LOWER, schema.UPPER,
                 schema.OFFSET))
+            # a range test, a high-bit test and the subtract per byte
+            bnd = bound(nbytes(dseq, dqual, dlen, *validate_decode(
+                dseq, dqual, dlen, schema)), 5 * n * L)
     log("kernel A == plain on %d cases; [4096, 256]: kernel %.4f ms, "
-        "plain %.4f ms" % (n_cases, ms, plain_ms))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        "plain %.4f ms, bound %.5f ms (%s)" % (n_cases, ms, plain_ms,
+                                              bnd["bound_ms"],
+                                              bnd["bound_by"]))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
 
 
 def _records(n, read_len, schema, rng, header_width=12):
@@ -457,9 +491,11 @@ def phase_kernel_b(seed):
     """Kernel B (uniform QC) against its plain version on the card."""
     import torch
 
-    from blazeseq_tpu.fastq.quality import parse_schema
+    from blazeseq_tpu_torch import parse_schema
     from blazeseq_tpu_torch.ops.uniform_parse import detect_uniform_layout
-    from blazeseq_tpu_torch.ops.uniform_qc import (uniform_qc,
+    from blazeseq_tpu_torch.ops.uniform_qc import (_uniform_qc_raw_cuda,
+                                                   _uniform_qc_raw_torch,
+                                                   uniform_qc,
                                                    uniform_qc_torch)
 
     rng = np.random.default_rng([seed, 2])
@@ -518,6 +554,39 @@ def phase_kernel_b(seed):
     binned[3, lay.o3 + 1] = 33 + 9  # a value outside the set
     compare(binned, binned.size, lay, 128, sanger, "eq-mode remainder",
             hist_vals=(2, 12, 23, 37))
+    # the kernel's tiles: odd and even record sizes, nrec_valid ending
+    # inside a tile, a violation in a tile's first and last row and in the
+    # rows past the last whole tile, binned eq-mode with a value outside
+    # the set
+    from blazeseq_tpu_torch import _kernels
+
+    for header_width in (12, 13):
+        arr = _records(3000, 150, sanger, rng, header_width)
+        lay = detect_uniform_layout(arr)
+        R = _kernels.load().bs_uniform_qc_tile_rows(lay.rs)
+        n_valid = (3000 // R - 1) * R + R // 2 + 1
+        arr[n_valid + 1, 0] = ord("#")  # past nrec_valid: ignored
+        q = arr[:, lay.o3 + 1:lay.rs - 1].astype(np.int64) - 33
+        eq = arr.copy()
+        eq[:, lay.o3 + 1:lay.rs - 1] = _PHRED_LUT[np.minimum(q, 63)] + 33
+        eq[n_valid - 2, lay.o3 + 1] = 33 + 9
+        for width in (128, 256):
+            tag = "rs=%d w=%d" % (lay.rs, width)
+            if not compare(arr, n_valid * lay.rs, lay, width, sanger,
+                           tag + " mid-tile end"):
+                raise AssertionError("clean tiles rejected, " + tag)
+            compare(eq, n_valid * lay.rs, lay, width, sanger,
+                    tag + " eq-mode remainder", hist_vals=(2, 12, 23, 37))
+            for kind, (row, col, val) in dict(
+                    first_row=(2 * R, lay.o2 + 1, ord("-")),
+                    last_row=(3 * R - 1, lay.o3 + 2, 0x80 | 40),
+                    tail_row=(n_valid - 1, lay.o1, ord("x"))).items():
+                bad = arr.copy()
+                bad[row, col] = val
+                if compare(bad, n_valid * lay.rs, lay, width, sanger,
+                           "%s violation in the %s" % (tag, kind)):
+                    raise AssertionError("violation in the %s accepted, %s"
+                                         % (kind, tag))
 
     # time one full-size chunk of the main path's layout
     n = (256 << 20) // RS
@@ -528,13 +597,25 @@ def phase_kernel_b(seed):
                 q_lo=int(sanger.LOWER), q_hi=int(sanger.UPPER),
                 offset=int(sanger.OFFSET))
     compare(rec, rec.size, lay, 256, sanger, "256 MiB chunk")
-    ms = cuda_ms(lambda: uniform_qc(c, rec.size, **args), inner=3)
-    plain_ms = cuda_ms(lambda: uniform_qc_torch(c, rec.size, **args),
-                       inner=2)
+    # the kernel's own launch against its plain twin, without the torch
+    # epilogue that folds the raw sums into QCStats (its small launches
+    # would time the host)
+    cnt = min(READ_LEN, 256)
+    raw = dict(rs=lay.rs, o1=lay.o1, o2=lay.o2, o3=lay.o3, cnt=cnt,
+               q_lo=args["q_lo"], q_hi=args["q_hi"], offset=args["offset"],
+               check_ascii=True, check_quality=True)
+    ms = cuda_ms(lambda: _uniform_qc_raw_cuda(c, n, **raw), inner=3)
+    plain_ms = cuda_ms(lambda: _uniform_qc_raw_torch(c, n, **raw), inner=2)
+    # reads the chunk once, writes 1 + 5 cnt + 64 + 101 + 64 int32 sums;
+    # at least one op per window byte (two per position) and one per
+    # 4-byte word of the proof
+    bnd = bound(rec.size + 4 * (1 + 5 * cnt + 64 + 101 + 64),
+                n * (2 * cnt + -(-lay.rs // 4)))
     log("kernel B == plain on %d cases; 256 MiB chunk (%d x %d): kernel "
-        "%.3f ms (%.1f GB/s), plain %.3f ms" % (
-            n_cases, n, RS, ms, rec.size / ms / 1e6, plain_ms))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        "%.3f ms (%.1f GB/s), plain %.3f ms, bound %.4f ms (%s)" % (
+            n_cases, n, RS, ms, rec.size / ms / 1e6, plain_ms,
+            bnd["bound_ms"], bnd["bound_by"]))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
 
 
 def _run_main(path, oracle, size, binned):
@@ -637,10 +718,13 @@ def phase_fallback(seed, tmp):
 
 def phase_kernel_nw(seed):
     """The NW kernel against its plain version on the card, exact, at the
-    upstream example's shape, QCModel's batch and width, and an edge batch
-    (lengths 0 and = width, bytes 0xFE and 0xFF, references of 1 and 1,000
-    bytes). Returns the JSON fields (timed at the example's shape) and the
-    timings of both timed shapes."""
+    upstream example's shape, QCModel's batch and width, and edge batches
+    (lengths 0, 1 and = width, bytes 0xFE and 0xFF, references of 1, 31,
+    32, 33, 160, 1,000 and 2,100 bytes (three column tiles), a width that
+    is not a multiple of 16 and batches that are not a multiple of the
+    reads per block). Returns the
+    JSON fields (timed at the example's shape) and the timings and bounds
+    of both timed shapes."""
     import torch
 
     from blazeseq_tpu_torch.ops.nw import (needleman_wunsch_cpu, nw_scores,
@@ -653,6 +737,8 @@ def phase_kernel_nw(seed):
              ("qc_batch", 4096, 256, READ_LEN, READ_LEN, acgt),
              ("edge_ref_1", 4096, 128, 1, None, edge),
              ("edge_ref_1000", 4096, 128, 1000, None, edge)]
+    cases += [("edge_ref_%d" % lr, 4099, 100, lr, None, edge)
+              for lr in (31, 32, 33, 160, 2100)]
     err = 0
     times = {}
     for label, B, Lq, Lr, read_len, alpha in cases:
@@ -662,13 +748,14 @@ def phase_kernel_nw(seed):
                    else np.full(B, read_len)).astype(np.int32)
         lengths[:8] = 0
         lengths[8:16] = Lq
+        lengths[17:24] = 1
         d = [torch.from_numpy(a).cuda() for a in (seq, lengths, ref)]
         got = nw_scores(*d)
         want = nw_scores_torch(*d)
         torch.cuda.synchronize()
         err = max(err, max_abs_diff((got,), (want,), "NW kernel, " + label))
         host = got.cpu().numpy()
-        for b in (0, 8, 16, 17):
+        for b in (0, 8, 16, 17, B - 1):
             twin = needleman_wunsch_cpu(seq[b, :lengths[b]].tobytes(),
                                         ref.tobytes())
             if host[b] != twin:
@@ -679,12 +766,19 @@ def phase_kernel_nw(seed):
             ms = cuda_ms(lambda: nw_scores(*d))
             plain_ms = cuda_ms(lambda: nw_scores_torch(*d), inner=1,
                                trials=3)
-            times[label] = dict(B=B, Lq=Lq, Lr=Lr, ms=ms, plain_ms=plain_ms)
-            log("NW kernel [%d, %d] vs Lr=%d: kernel %.4f ms, plain %.3f ms"
-                % (B, Lq, Lr, ms, plain_ms))
+            # the DP cells this batch needs: each read's own length
+            cells = int(np.clip(lengths, 0, Lq).astype(np.int64).sum()) * Lr
+            bnd = bound(nbytes(*d, got), NW_OPS_PER_CELL * cells)
+            times[label] = dict(B=B, Lq=Lq, Lr=Lr, ms=ms, plain_ms=plain_ms,
+                                cells=cells, **bnd)
+            log("NW kernel [%d, %d] vs Lr=%d: kernel %.4f ms, plain %.3f ms, "
+                "bound %.4f ms (%s, %d cells)" % (
+                    B, Lq, Lr, ms, plain_ms, bnd["bound_ms"],
+                    bnd["bound_by"], cells))
     log("NW kernel == plain on %d shapes" % len(cases))
-    return dict(max_abs_err=err, ms=times["example"]["ms"],
-                plain_ms=times["example"]["plain_ms"]), times
+    ex = times["example"]
+    return dict(max_abs_err=err, ms=ex["ms"], plain_ms=ex["plain_ms"],
+                bound_ms=ex["bound_ms"], bound_by=ex["bound_by"]), times
 
 
 def phase_aligner():
@@ -693,7 +787,7 @@ def phase_aligner():
     2,000 against the numpy twin."""
     import torch
 
-    import blazeseq_tpu as bt
+    import blazeseq_tpu_torch as bt
     from blazeseq_tpu_torch import NWAligner
 
     t0 = time.perf_counter()
@@ -774,7 +868,7 @@ def phase_align_run_file(seed, files, oracle):
     20,000-read prefix against the same call on the CPU."""
     import torch
 
-    import blazeseq_tpu as bt
+    import blazeseq_tpu_torch as bt
     from blazeseq_tpu_torch import QCModel
     from blazeseq_tpu_torch.ops.nw import needleman_wunsch_cpu
 
@@ -867,10 +961,13 @@ def phase_kernel_scan(seed):
                                  % (n, got, expect))
     ms = cuda_ms(lambda: structural_bitmaps(big))
     plain_ms = cuda_ms(lambda: structural_bitmaps_torch(big), inner=2)
+    # three byte-class tests per 4-byte word
+    bnd = bound(nbytes(big, *structural_bitmaps(big)), 3 * big.numel() // 4)
     log("scan kernel == plain on %d cases; 256 MiB chunk: kernel %.4f ms "
-        "(%.1f GB/s), plain %.3f ms" % (n_cases, ms, big.numel() / ms / 1e6,
-                                        plain_ms))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        "(%.1f GB/s), plain %.3f ms, bound %.4f ms (%s)" % (
+            n_cases, ms, big.numel() / ms / 1e6, plain_ms, bnd["bound_ms"],
+            bnd["bound_by"]))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
 
 
 def phase_device_parse(seed, tmp):
@@ -882,7 +979,7 @@ def phase_device_parse(seed, tmp):
     bytes, and a planted '@' -> 'X' giving code 1 at its record."""
     import torch
 
-    import blazeseq_tpu as bt
+    import blazeseq_tpu_torch as bt
     from blazeseq_tpu_torch.ops.raw_stats import raw_stream_qc
     from blazeseq_tpu_torch.ops.scan import (count_records_device,
                                              parse_fastq_device)
@@ -1022,7 +1119,7 @@ def _cli(argv, device, out_dir):
 
 def _head_records(path, k):
     """(id, seq, qual) of the first k records of a FASTQ file."""
-    import blazeseq_tpu as bt
+    import blazeseq_tpu_torch as bt
 
     with open(path, "rb") as f:
         head = f.read(k * 4096)
@@ -1054,7 +1151,7 @@ def _cli_twin_check(name, files, oracle, text, out_dir):
     """The full-file run's totals against the host count and the oracle,
     and its output for the first TWIN_SAMPLE reads (or pairs) against the
     host twins."""
-    import blazeseq_tpu as bt
+    import blazeseq_tpu_torch as bt
     from blazeseq_tpu_torch.ops import demux, merge, trim
 
     head = _head_records(files["align"], TWIN_SAMPLE)
@@ -1233,20 +1330,23 @@ def main(argv=None):
     log("NW kernel timings:", json.dumps(nw_times))
     log("end to end:", json.dumps(e2e))
     log("total %.1f s" % (time.perf_counter() - t_start))
+    # no single PyTorch call computes any of the four functions, so none
+    # has a library time
     print(json.dumps({"kernels": [
         dict(name="uniform_qc", route="cuda", source=KERNEL_B_SOURCE,
              replaces="blazeseq_tpu/ops/fused_qc.py:205",
-             launches=launches["uniform_qc"], **kb),
+             launches=launches["uniform_qc"], library_ms=None, **kb),
         dict(name="validate_decode", route="cuda", source=KERNEL_A_SOURCE,
              replaces="blazeseq_tpu/ops/validate.py:94",
-             launches=launches["validate_decode"], **ka),
+             launches=launches["validate_decode"], library_ms=None, **ka),
         dict(name="nw_scores", route="cuda", source=KERNEL_NW_SOURCE,
              replaces="blazeseq_tpu/ops/nw.py:174",
-             launches=launches["nw_scores"], **knw),
+             launches=launches["nw_scores"], library_ms=None, **knw),
         dict(name="structural_bitmaps", route="cuda",
              source=KERNEL_SCAN_SOURCE,
              replaces="blazeseq_tpu/ops/scan.py:78",
-             launches=launches["structural_bitmaps"], **kscan),
+             launches=launches["structural_bitmaps"], library_ms=None,
+             **kscan),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

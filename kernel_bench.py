@@ -1,0 +1,143 @@
+"""Device times of the port's NW kernel and kernel B at the main paths'
+shapes, for one source tree or several in turn.
+
+    python3 kernel_bench.py [--tree DIR ...] [--seed N]
+
+Each DIR (default: this script's directory) holds a `blazeseq_tpu_torch`
+package; its kernels are built from its own sources and timed in a fresh
+process, trees in the order given (pass parent, change, change, parent to
+compare two commits on one card). Shapes:
+
+* NW: 65,536 reads x 64 columns of length 40 against a 40 bp reference
+  (the nw_gpu example) and 4,096 x 256 of length 150 against 150 bp (the
+  QC batch of `run_file(align_to)`);
+* kernel B: one 256 MiB chunk (760,440 records of 353 bytes) of the
+  uniform corpus, and of the quality-binned one, through the raw launch
+  (`_uniform_qc_raw_cuda`, without the torch epilogue).
+
+`device_ms` queues the launches behind a sleeping kernel, so it is the
+card's time alone; `event_ms` times back-to-back calls with CUDA events,
+host launch cost included when the host is the slower side (both medians of
+5 trials). Prints one JSON line per tree, with the card's name and power
+limit. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _timed(fn, inner, trials, queue):
+    """Median ms per fn() call over `trials` CUDA-event timings of `inner`
+    calls; with `queue`, the calls are enqueued behind a sleeping kernel
+    so that the host's launch cost is hidden."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        if queue:
+            torch.cuda._sleep(50_000_000)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    return statistics.median(times)
+
+
+def device_ms(fn, inner=10, trials=5):
+    return _timed(fn, inner, trials, queue=True)
+
+
+def event_ms(fn, inner=10, trials=5):
+    return _timed(fn, inner, trials, queue=False)
+
+
+def _one_tree(tree, seed):
+    sys.path.insert(0, tree)
+    sys.path.insert(1, HERE)
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from blazeseq_tpu_torch import _kernels
+    from blazeseq_tpu_torch.ops import nw as nw_ops
+    from blazeseq_tpu_torch.ops import uniform_qc as uqc
+    from blazeseq_tpu_torch.ops.uniform_parse import detect_uniform_layout
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_bench.py needs a CUDA card")
+    _kernels.load()
+    out = dict(tree=os.path.relpath(tree, HERE),
+               package=os.path.dirname(nw_ops.__file__))
+    rng = np.random.default_rng([seed, 3])
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    for label, B, Lq, Lr in (("nw_example", 65536, 64, 40),
+                             ("nw_qc_batch", 4096, 256, 150)):
+        d = [torch.from_numpy(a).cuda() for a in (
+            rng.choice(acgt, (B, Lq)), np.full(B, Lr, np.int32),
+            rng.choice(acgt, Lr))]
+        if not torch.equal(nw_ops.nw_scores(*d), nw_ops.nw_scores_torch(*d)):
+            raise AssertionError("%s: kernel differs from plain" % label)
+        out[label] = dict(device_ms=device_ms(lambda: nw_ops.nw_scores(*d)),
+                          event_ms=event_ms(lambda: nw_ops.nw_scores(*d)))
+    n = (256 << 20) // cs.RS
+    for label, binned in (("uniform_qc", False), ("uniform_qc_binned", True)):
+        rec, _ = cs._make_block(seed, 10 ** 6, 0, n, binned)
+        lay = detect_uniform_layout(rec)
+        c = torch.from_numpy(rec).cuda()
+        kw = dict(rs=lay.rs, o1=lay.o1, o2=lay.o2, o3=lay.o3, cnt=cs.READ_LEN,
+                  q_lo=33, q_hi=126, offset=33, check_ascii=True,
+                  check_quality=True)
+        got = uqc._uniform_qc_raw_cuda(c, n, **kw)
+        want = uqc._uniform_qc_raw_torch(c, n, **kw)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError("%s: kernel differs from plain" % label)
+        out[label] = dict(
+            device_ms=device_ms(lambda: uqc._uniform_qc_raw_cuda(c, n, **kw),
+                                inner=5),
+            event_ms=event_ms(lambda: uqc._uniform_qc_raw_cuda(c, n, **kw),
+                              inner=5))
+        del c
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", action="append")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--one", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.one:
+        print(json.dumps(_one_tree(os.path.abspath(args.one), args.seed)))
+        return
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    for tree in args.tree or [HERE]:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--one", tree, "--seed", str(args.seed)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            sys.stderr.write(res.stderr)
+            raise SystemExit("kernel_bench.py: tree %s failed" % tree)
+        row = json.loads(res.stdout.strip().splitlines()[-1])
+        row["card"] = smi
+        print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()

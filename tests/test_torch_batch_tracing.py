@@ -107,15 +107,29 @@ def test_upload_round_trip_on_card():
 
 
 def test_tracer_is_the_reference_host_tracer():
+    """The port keeps its own copy of the reference's host Tracer: the same
+    sections, counters and report lines (times masked)."""
     from blazeseq_tpu import tracing as ref
 
-    assert tracing.Tracer is ref.Tracer
-    assert tracing.global_tracer() is ref.global_tracer()
-    t = tracing.Tracer()
-    with t.section("parse"):
-        t.count("reads", 3)
-    assert t.calls["parse"] == 1 and t.counters["reads"] == 3
-    assert "parse" in t.report()
+    assert tracing.Tracer is not ref.Tracer
+    assert tracing.global_tracer() is tracing.global_tracer()
+    reports = []
+    for mod in (tracing, ref):
+        t = mod.Tracer()
+        for _ in range(2):
+            with t.section("parse"):
+                with t.section("scan"):
+                    t.count("reads", 3)
+        t.count("batches")
+        assert t.calls == {"parse": 2, "scan": 2}
+        assert t.counters == {"reads": 6, "batches": 1}
+        assert t.rate("parse", 0) == 0.0 and t.rate("none", 10) == 0.0
+        lines = t.report().splitlines()
+        reports.append([lines[0]] + [
+            " ".join(w for w in ln.split() if not w[:1].isdigit()
+                     or w.startswith("(")) for ln in lines[1:3]] + lines[3:])
+    assert reports[0] == reports[1]
+    assert reports[0][1:3] == ["parse (2 calls)", "scan (2 calls)"]
 
 
 def _trace_names(path):

@@ -11,7 +11,9 @@ loads no JAX. Cases named *on_card* hold the card's output against the
 CPU's and skip where there is no card.
 """
 
+import gzip
 import os
+import shutil
 import subprocess
 import sys
 
@@ -66,6 +68,17 @@ def _corpus(n=600, seed=3):
     return _fastq(recs)
 
 
+def _fasta(seed=6):
+    """Five records of 1-500 bp wrapped at 60 columns."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, n in enumerate((500, 61, 1, 37, 240)):
+        seq = rng.choice(np.frombuffer(b"ACGTN", np.uint8), n).tobytes()
+        out.append(b">chr%d some description\n" % i + b"".join(
+            seq[j:j + 60] + b"\n" for j in range(0, n, 60)))
+    return b"".join(out)
+
+
 def _mates(n=300, seed=4):
     rng = np.random.default_rng(seed)
     r1, r2 = [], []
@@ -101,6 +114,8 @@ def files(tmp_path_factory):
     put("plain.fastq", _fastq([(b"read_0", b"ACGT", b"IIII")]))
     put("long.fastq", b"@L0\n" + b"A" * 2000 + b"\n+\n" + b"I" * 2000
         + b"\n")
+    put("readsgz.fastq.gz", gzip.compress(_corpus(n=200, seed=5)))
+    put("genome.fa", _fasta())
     return out
 
 
@@ -161,9 +176,20 @@ COMMANDS = {
     "tiles": ["tiles", "{reads}"],
     "tiles_non_illumina": ["tiles", "{plain}"],
     "count": ["count", "{reads}", "{r1}"],
+    "count_gzip": ["count", "{readsgz}"],
+    "fasta_count": ["fasta-count", "{genome}"],
+    "faidx": ["faidx", "{out}/genome.fa"],
+    "fetch": ["fetch", "{genome}", "chr0", "10", "130"],
+    "fetch_whole": ["fetch", "{genome}", "chr4"],
     "filter": ["filter", "--min-len", "20", "--min-q", "20", "--out",
                "{out}/f.fastq", "{reads}"],
+    "filter_subsample": ["filter", "--max-len", "120", "--fraction", "0.3",
+                         "--seed", "7", "--out", "{out}/f.fastq", "{reads}",
+                         "{more}"],
     "fqidx": ["fqidx", "--fetch", "3", "--count", "2", "{reads}"],
+    "fqidx_build": ["fqidx", "--stride", "50", "{out}/reads.fastq"],
+    "usage_filter": ["filter", "--min-len"],
+    "usage_fqidx": ["fqidx", "--stride", "5"],
     "usage_trim": ["trim"],
     "usage_demux": ["demux", "{reads}"],
     "usage_merge": ["merge", "{r1}"],
@@ -171,10 +197,19 @@ COMMANDS = {
 }
 
 
+# host commands that write beside their input get a copy of it in {out}
+STAGED = {"faidx": "genome", "fqidx_build": "reads"}
+
+
 @pytest.mark.parametrize("name", sorted(COMMANDS))
 def test_command_matches_reference(name, files, tmp_path, capsys):
     ref_main = _reference_main()
     argv = COMMANDS[name]
+    for side in ("ref", "port"):
+        if name in STAGED:
+            src = files[STAGED[name]]
+            os.makedirs(tmp_path / side)
+            shutil.copy(src, tmp_path / side / os.path.basename(src))
     want = _run(ref_main, argv, files, str(tmp_path / "ref"), capsys)
     got = _run(lambda a: main(a, device="cpu"), argv, files,
                str(tmp_path / "port"), capsys)

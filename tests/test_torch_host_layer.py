@@ -1,0 +1,348 @@
+"""Parity: the port's own copy of the host layer (blazeseq_tpu_torch's
+readers, FASTQ parser, quality schemas, batches, FASTA / FAI / FQI indexes,
+the native scanner, the synthetic generator and the HTML report) against
+the reference's modules of the same names, on the CPU.
+
+Every file in tests/data/fastq_parser/ goes through both parsers (through
+`open_reader`, so the .gz and BGZF files take the inflate path) in three
+modes: the same records, or the same error class, code and message with
+its "Record number:" context. Also: padded batches leaf by leaf at two
+widths, gzip and BGZF corpora, the generator byte for byte, write_html
+byte for byte, and FASTA, FAI and FQI results. Nothing here needs a card.
+"""
+
+import gzip
+import os
+
+import numpy as np
+import pytest
+
+import blazeseq_tpu as ref
+import blazeseq_tpu_torch as port
+from blazeseq_tpu import report as ref_report
+from blazeseq_tpu.fai import parser as ref_fai
+from blazeseq_tpu.fasta import parser as ref_fasta
+from blazeseq_tpu.fastq import index as ref_index
+from blazeseq_tpu.fastq import paired as ref_paired
+from blazeseq_tpu.fastq import quality as ref_quality
+from blazeseq_tpu_torch import report as port_report
+from blazeseq_tpu_torch.fai import parser as port_fai
+from blazeseq_tpu_torch.fasta import parser as port_fasta
+from blazeseq_tpu_torch.fastq import index as port_index
+from blazeseq_tpu_torch.fastq import paired as port_paired
+from blazeseq_tpu_torch.fastq import quality as port_quality
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+FASTQ_DIR = os.path.join(DATA, "fastq_parser")
+FASTA_DIR = os.path.join(DATA, "fasta_parser")
+FASTQ_FILES = sorted(os.listdir(FASTQ_DIR))
+FASTA_FILES = sorted(f for f in os.listdir(FASTA_DIR) if f != "README.md")
+
+
+def _schema_of(name):
+    """The quality schema a corpus file is written in, from its name."""
+    for key, schema in (("_as_sanger", "sanger"), ("_as_solexa", "solexa"),
+                        ("_as_illumina", "illumina_1.3"),
+                        ("solexa", "solexa"), ("illumina", "illumina_1.3"),
+                        ("sanger", "sanger")):
+        if key in name:
+            return schema
+    return "generic"
+
+
+def _outcome(pkg, path, mode):
+    """What one package's validating parser makes of a file: ("ok", the
+    records or counts) or ("error", class name, code, message)."""
+    cfg = pkg.ParserConfig(check_ascii=True, check_quality=True,
+                           quality_schema=_schema_of(os.path.basename(path)))
+    p = pkg.FastqParser(pkg.open_reader(path), config=cfg)
+    try:
+        if mode == "records":
+            got = [(r.id_bytes(), r.sequence_bytes(), r.quality_bytes())
+                   for r in p.records()]
+        elif mode == "views":
+            got = [(bytes(v.id_bytes()), bytes(v.sequence_bytes()),
+                    bytes(v.quality_bytes())) for v in p.views()]
+        elif mode == "batches":
+            got = []
+            for b in p.batches(7):
+                got += [(r.id_bytes(), r.sequence_bytes(), r.quality_bytes())
+                        for r in (b.get_record(i) for i in range(len(b)))]
+        else:
+            got = p.count()
+        return ("ok", got)
+    except Exception as e:  # compared field by field below
+        code = getattr(e, "code", None)
+        return ("error", type(e).__name__,
+                None if code is None else int(code), str(e))
+
+
+@pytest.mark.parametrize("mode", ["records", "views", "batches", "count"])
+@pytest.mark.parametrize("fname", FASTQ_FILES)
+def test_parser_matches_reference_on_corpus(fname, mode):
+    path = os.path.join(FASTQ_DIR, fname)
+    want = _outcome(ref, path, mode)
+    got = _outcome(port, path, mode)
+    assert got == want
+    if got[0] == "error" and got[2] is not None and got[2] != 6:
+        # a parse or validation error names the record it stopped at
+        assert "Record number:" in got[3]
+
+
+def test_error_classes_are_the_ports_own():
+    """The port raises its own error classes, which mirror the reference's
+    names and codes."""
+    from blazeseq_tpu import errors as ref_errors
+    from blazeseq_tpu_torch import errors as port_errors
+
+    for name in ("FastxError", "FastxEOFError", "ParseError",
+                 "ValidationError"):
+        assert getattr(port_errors, name) is not getattr(ref_errors, name)
+    assert ({c.name: int(c) for c in port_errors.FastxErrorCode}
+            == {c.name: int(c) for c in ref_errors.FastxErrorCode})
+    p = port.FastqParser(port.MemoryReader(b"@r\nACGT\n+\nII\n"))
+    with pytest.raises(port_errors.ParseError, match="Record number: 1"):
+        list(p.records())
+
+
+def _corpus(n, lo, hi, seed):
+    return bytes(ref.generate_variable_id_fastq_buffer(
+        n, lo, hi, 2, 40, "sanger", seed=seed))
+
+
+@pytest.mark.parametrize("width", [128, 256])
+def test_padded_batches_match_leaf_by_leaf(width):
+    buf = _corpus(700, 20, 300, seed=width)
+    kw = dict(max_len=width, pad_records_to=256)
+    want = list(ref.FastqParser(ref.MemoryReader(buf)).padded_batches(
+        200, **kw))
+    got = list(port.FastqParser(port.MemoryReader(buf)).padded_batches(
+        200, **kw))
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert g.n_records == w.n_records
+        assert g.quality_offset == w.quality_offset
+        n = w.n_records
+        for leaf in ("seq", "qual", "lengths"):
+            a, b = getattr(g, leaf), getattr(w, leaf)
+            assert a.dtype == b.dtype and a.shape == b.shape, leaf
+            # rows past n_records are scratch in both packages
+            assert np.array_equal(a[:n], b[:n]), leaf
+        assert not np.asarray(g.lengths)[n:].any()
+
+
+def test_batches_and_serializers_match():
+    from blazeseq_tpu.fastq import batch as ref_batch
+    from blazeseq_tpu_torch.fastq import batch as port_batch
+
+    buf = _corpus(300, 1, 180, seed=5)
+    bw = ref.FastqParser(ref.MemoryReader(buf)).next_batch(300)
+    bg = port.FastqParser(port.MemoryReader(buf)).next_batch(300)
+    assert type(bg) is port_batch.FastqBatch
+    for a, b in ((bg.to_padded(), bw.to_padded()),
+                 (bg.to_padded(max_len=64), bw.to_padded(max_len=64))):
+        assert np.array_equal(a.seq, b.seq) and np.array_equal(a.qual, b.qual)
+        assert np.array_equal(a.lengths, b.lengths)
+    pw = bw.to_padded()
+    bw._finalize()
+    starts = np.arange(len(bw), dtype=np.int64) % 5
+    for sub in (None, starts):
+        rows = (bw._id_bytes, bw._id_ends, pw.seq, pw.qual,
+                np.maximum(pw.lengths - 5, 0).astype(np.int32))
+        assert (port_batch.serialize_fastq_rows(*rows, sub_start=sub)
+                == ref_batch.serialize_fastq_rows(*rows, sub_start=sub))
+    keep = np.arange(len(bw)) % 3 != 0
+    lens = np.diff(np.concatenate(([0], bw._ends)))
+    soa = (bw._id_bytes, bw._id_ends, bw._sequence_bytes, bw._quality_bytes,
+           bw._ends)
+    kw = dict(sub_start=np.zeros(len(lens), np.int64),
+              sub_len=np.where(keep, lens, 0))
+    assert (port_batch.serialize_fastq_soa(*soa, **kw)
+            == ref_batch.serialize_fastq_soa(*soa, **kw))
+
+
+@pytest.mark.parametrize("kind", ["gzip", "bgzf"])
+def test_compressed_input_through_open_reader(kind, tmp_path):
+    buf = _corpus(3000, 30, 160, seed=11)
+    if kind == "gzip":
+        path = tmp_path / "r.fastq.gz"
+        path.write_bytes(gzip.compress(buf))
+    else:
+        # BGZF: gzip members of <= 64 KiB input, each with the BC extra field
+        import struct
+        import zlib
+
+        parts = []
+        for i in range(0, len(buf), 60000):
+            co = zlib.compressobj(6, zlib.DEFLATED, -15)
+            body = co.compress(buf[i:i + 60000]) + co.flush()
+            blk = (b"\x1f\x8b\x08\x04\0\0\0\0\0\xff\x06\0BC\x02\0"
+                   + struct.pack("<H", len(body) + 25) + body
+                   + struct.pack("<II", zlib.crc32(buf[i:i + 60000]),
+                                 len(buf[i:i + 60000])))
+            parts.append(blk)
+        parts.append(b"\x1f\x8b\x08\x04\0\0\0\0\0\xff\x06\0BC\x02\0\x1b\0"
+                     b"\x03\0\0\0\0\0\0\0\0\0")
+        path = tmp_path / "r.fastq.bgz"
+        path.write_bytes(b"".join(parts))
+    rd, rp = ref.open_reader(str(path)), port.open_reader(str(path))
+    assert type(rp).__name__ == type(rd).__name__
+    assert type(rp).__module__.startswith("blazeseq_tpu_torch.")
+    want = [(r.id_bytes(), r.sequence_bytes(), r.quality_bytes())
+            for r in ref.FastqParser(rd).records()]
+    got = [(r.id_bytes(), r.sequence_bytes(), r.quality_bytes())
+           for r in port.FastqParser(rp).records()]
+    assert got == want and len(got) == 3000
+    assert (port.parser(str(path)).count()
+            == ref.parser(str(path)).count())
+
+
+@pytest.mark.parametrize("schema", ["sanger", "illumina_1.3", "solexa"])
+def test_generator_is_byte_equal(schema):
+    args = (500, 10, 200, 2, 40, schema)
+    assert (port.generate_synthetic_fastq_buffer(*args, gc_bias=0.3)
+            == ref.generate_synthetic_fastq_buffer(*args, gc_bias=0.3))
+
+
+@pytest.mark.parametrize("name", ["generic", "sanger", "solexa",
+                                  "illumina_1.3", "illumina_1.5",
+                                  "illumina_1.8"])
+def test_quality_schemas_match(name):
+    a, b = port.parse_schema(name), ref.parse_schema(name)
+    assert (a.LOWER, a.UPPER, a.OFFSET) == (b.LOWER, b.UPPER, b.OFFSET)
+    assert port_quality.schema_key(a) == ref_quality.schema_key(b)
+
+
+@pytest.mark.parametrize("fname", ["illumina_full_range_as_illumina.fastq",
+                                   "solexa_example.fastq",
+                                   "sanger_full_range_as_sanger.fastq",
+                                   "example.fastq"])
+def test_quality_detection_matches(fname):
+    path = os.path.join(FASTQ_DIR, fname)
+    a = port_quality.detect_quality_schema_file(path)
+    b = ref_quality.detect_quality_schema_file(path)
+    assert port_quality.schema_key(a) == ref_quality.schema_key(b)
+
+
+@pytest.fixture(scope="module")
+def qc_reports(tmp_path_factory):
+    """QC reports of the port on a small corpus, without and with the
+    optional panels."""
+    p = tmp_path_factory.mktemp("html") / "r.fastq"
+    p.write_bytes(_corpus(1500, 40, 150, seed=2))
+    plain = port.QCModel(quality_schema="sanger", device="cpu").run_file(
+        str(p))
+    panels = port.QCModel(quality_schema="sanger", adapters=[b"ACGTAC"],
+                          track_duplicates=True, track_quartiles=True,
+                          device="cpu").run_file(str(p))
+    return dict(plain=plain, panels=panels)
+
+
+@pytest.mark.parametrize("which", ["plain", "panels"])
+def test_write_html_is_byte_equal(which, qc_reports, tmp_path):
+    rep = qc_reports[which]
+    port_report.write_html(rep, str(tmp_path / "port.html"), title="t")
+    ref_report.write_html(rep, str(tmp_path / "ref.html"), title="t")
+    got = (tmp_path / "port.html").read_bytes()
+    assert got == (tmp_path / "ref.html").read_bytes()
+    assert got.startswith(b"<!doctype html>")
+
+
+@pytest.mark.parametrize("fname", FASTA_FILES)
+def test_fasta_and_fai_match(fname):
+    path = os.path.join(FASTA_DIR, fname)
+
+    def outcome(mod, pkg):
+        try:
+            recs = [(r.id_bytes(), r.sequence_bytes())
+                    for r in mod.FastaParser(pkg.open_reader(path)).records()]
+            counts = mod.FastaParser(pkg.open_reader(path)).count()
+        except Exception as e:  # compared as class name and message
+            return ("error", type(e).__name__, str(e))
+        return ("ok", recs, counts)
+
+    def fai(mod, pkg):
+        try:
+            return [vars(r) for r in mod.build_fai(pkg.io.readers.FileReader(
+                path))]
+        except Exception as e:  # compared as class name and message
+            return ("error", type(e).__name__, str(e))
+
+    assert outcome(port_fasta, port) == outcome(ref_fasta, ref)
+    assert fai(port_fai, port) == fai(ref_fai, ref)
+
+
+def test_indexed_fasta_fetch_matches(tmp_path):
+    rng = np.random.default_rng(1)
+    recs = []
+    for i in range(6):
+        seq = rng.choice(np.frombuffer(b"ACGTN", np.uint8),
+                         int(rng.integers(1, 400))).tobytes()
+        lines = [seq[j:j + 60] for j in range(0, len(seq), 60)]
+        recs.append(b">chr%d desc\n" % i + b"\n".join(lines) + b"\n")
+    path = tmp_path / "g.fa"
+    path.write_bytes(b"".join(recs))
+    with port_fai.IndexedFasta(str(path)) as a, \
+            ref_fai.IndexedFasta(str(path)) as b:
+        assert a.names() == b.names()
+        for name in b.names():
+            n = b.length(name)
+            assert a.length(name) == n
+            for start, end in ((0, None), (0, n), (n // 3, n // 2 + 1),
+                               (n - 1, n)):
+                assert a.fetch(name, start, end) == b.fetch(name, start, end)
+
+
+@pytest.mark.parametrize("stride", [1, 37, 10_000])
+def test_fqidx_matches(stride, tmp_path):
+    buf = _corpus(800, 20, 120, seed=stride)
+    path = tmp_path / "r.fastq"
+    path.write_bytes(buf)
+    a = port_index.build_fqi(str(path), stride=stride)
+    b = ref_index.build_fqi(str(path), stride=stride)
+    assert (a.stride, a.n_records, a.n_bases, a.n_bytes, a.bgzf) == (
+        b.stride, b.n_records, b.n_bases, b.n_bytes, b.bgzf)
+    assert np.array_equal(a.offsets, b.offsets)
+    port_index.write_fqi(a, str(tmp_path / "a.fqi"))
+    ref_index.write_fqi(b, str(tmp_path / "b.fqi"))
+    assert (tmp_path / "a.fqi").read_bytes() == (tmp_path / "b.fqi") \
+        .read_bytes()
+    with port_index.IndexedFastq(str(path), stride=stride) as x, \
+            ref_index.IndexedFastq(str(path), stride=stride) as y:
+        for start, k in ((0, 3), (399, 5), (799, 1)):
+            assert ([r.to_bytes() for r in x.fetch(start, k)]
+                    == [r.to_bytes() for r in y.fetch(start, k)])
+        assert x.shard_ranges(3) == y.shard_ranges(3)
+
+
+def test_paired_parsers_match():
+    r1 = b"".join(b"@p%d/1\nACGT\n+\nIIII\n" % i for i in range(40))
+    r2 = b"".join(b"@p%d/2\nTTGGA\n+\nJJJJJ\n" % i for i in range(40))
+    a = [(x.to_bytes(), y.to_bytes()) for x, y in port_paired.PairedFastqParser(
+        port.MemoryReader(r1), port.MemoryReader(r2)).pairs()]
+    b = [(x.to_bytes(), y.to_bytes()) for x, y in ref_paired.PairedFastqParser(
+        ref.MemoryReader(r1), ref.MemoryReader(r2)).pairs()]
+    assert a == b and len(a) == 40
+    bad = r2.replace(b"@p7/2", b"@zz/2")
+    with pytest.raises(port_paired.PairSyncError) as ei:
+        list(port_paired.PairedFastqParser(port.MemoryReader(r1),
+                                           port.MemoryReader(bad)).pairs())
+    with pytest.raises(ref_paired.PairSyncError) as ej:
+        list(ref_paired.PairedFastqParser(ref.MemoryReader(r1),
+                                          ref.MemoryReader(bad)).pairs())
+    assert str(ei.value) == str(ej.value)
+
+
+def test_native_scanner_is_the_ports_own_build():
+    """The port builds and loads its own native libraries; scans agree."""
+    from blazeseq_tpu import native as ref_native
+    from blazeseq_tpu_torch import native as port_native
+
+    assert port_native is not ref_native
+    assert port_native.has_native() == ref_native.has_native()
+    window = np.frombuffer(_corpus(400, 1, 90, seed=3), np.uint8).copy()
+    a = port_native.count_fastq(window, 0, True)
+    b = ref_native.count_fastq(window, 0, True)
+    assert a == b
+    assert np.array_equal(port_native.find_newlines(window),
+                          ref_native.find_newlines(window))

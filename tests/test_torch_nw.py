@@ -231,3 +231,28 @@ def test_kernel_matches_plain_on_card(case):
     for b in (0, 1, 7, 8, 9):
         assert host[b] == nw.needleman_wunsch_cpu(
             seq[b, :lengths[b]].tobytes(), ref.tobytes())
+
+
+@pytest.mark.parametrize("Lq", [64, 100])
+@pytest.mark.parametrize("Lr", [1, 31, 32, 33, 40, 150, 160, 1000, 2100])
+def test_wavefront_edges_on_card(Lr, Lq):
+    """The lanes-per-read groups at every reference length that changes
+    their shape (one tile or several, strips of 1-32 columns), rows of a
+    width that is not a multiple of 16 bytes, lengths 0, 1 and Lq, and a
+    batch that is not a multiple of the reads per block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    B = 1003
+    seq, lengths, ref = _inputs(B, Lq, Lr, seed=Lr + Lq, alphabet=SENTINELS)
+    lengths[2:6] = (1, 1, Lq, Lq)
+    lengths[6:8] = (-1, Lq + 1)
+    lengths[-3:] = (0, 1, Lq)
+    d = [torch.from_numpy(a).cuda() for a in (seq, lengths, ref)]
+    got = nw.nw_scores(*d)
+    want = nw.nw_scores_torch(*d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    host = got.cpu().numpy()
+    for b in (0, 1, 2, 4, B - 3, B - 2, B - 1):
+        assert host[b] == nw.needleman_wunsch_cpu(
+            seq[b, :lengths[b]].tobytes(), ref.tobytes())

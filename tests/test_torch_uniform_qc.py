@@ -17,6 +17,7 @@ import torch
 
 import blazeseq_tpu as bt
 from blazeseq_tpu.fastq.quality import parse_schema
+from blazeseq_tpu_torch import _kernels
 from blazeseq_tpu_torch.ops.uniform_parse import (UniformLayout,
                                                   detect_uniform_layout)
 from blazeseq_tpu_torch.ops.uniform_qc import uniform_qc, uniform_qc_torch
@@ -257,3 +258,68 @@ def test_kernel_matches_twin_on_card(read_len, width, hist_vals):
     for a, b in zip(st_k, st_t):
         if a is not None:
             assert torch.equal(a, b)
+
+
+def _fixed_records(n, read_len, header_width, seed):
+    """u8[n, rs] sanger records with ids of `header_width` bytes: rs is
+    odd or even with the width's parity."""
+    rng = np.random.default_rng(seed)
+    rs = header_width + 2 * read_len + 6
+    arr = np.empty((n, rs), np.uint8)
+    arr[:, 0] = ord("@")
+    arr[:, 1:header_width + 1] = rng.choice(
+        np.frombuffer(b"ABCDEF0123:", np.uint8), (n, header_width))
+    o1 = header_width + 1
+    arr[:, o1] = 10
+    arr[:, o1 + 1:o1 + 1 + read_len] = rng.choice(
+        np.frombuffer(b"ACGTacgtN", np.uint8), (n, read_len))
+    o2 = o1 + 1 + read_len
+    arr[:, o2:o2 + 3] = np.frombuffer(b"\n+\n", np.uint8)
+    arr[:, o2 + 3:rs - 1] = rng.integers(33, 75, (n, read_len))
+    arr[:, rs - 1] = 10
+    return arr
+
+
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("header_width", [12, 13])
+@pytest.mark.parametrize("case", ["clean", "bad_first_row", "bad_last_row",
+                                  "bad_tail_row", "eq_outside_set"])
+def test_kernel_tiles_on_card(case, header_width, width):
+    """The kernel's tiling: nrec_valid ending inside a tile, a violation in
+    the first and the last row of a staged tile and in the rows past the
+    last whole tile, odd and even record sizes, two stats widths, and the
+    binned eq-mode with a value outside the set; every leaf equal to the
+    plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    arr = _fixed_records(4000, 150, header_width, seed=header_width + width)
+    rs = arr.shape[1]
+    assert rs % 2 == header_width % 2
+    R = _kernels.load().bs_uniform_qc_tile_rows(rs)
+    n_tiles = 4000 // R - 1
+    n_valid = n_tiles * R + R // 2 + 1  # ends inside a tile
+    lay = detect_uniform_layout(arr)
+    assert lay.rs == rs
+    arr[n_valid + 1, 0] = ord("#")  # past nrec_valid: ignored
+    hist_vals = ()
+    if case == "bad_first_row":
+        arr[2 * R, lay.o2 + 1] = ord("-")
+    elif case == "bad_last_row":
+        arr[3 * R - 1, lay.o3 + 2] = 0x80 | 40
+    elif case == "bad_tail_row":
+        arr[n_valid - 1, lay.o1] = ord("x")
+    elif case == "eq_outside_set":
+        q = arr[:, lay.o3 + 1:rs - 1].astype(np.int32) - 33
+        arr[:, lay.o3 + 1:rs - 1] = LUT[np.searchsorted(EDGES, q)] + 33
+        arr[n_valid - 2, lay.o3 + 1] = 33 + 9
+        hist_vals = (2, 12, 23, 37)
+    kw = _kw(lay, width, parse_schema("sanger"))
+    c = torch.from_numpy(arr).cuda()
+    ok_k, st_k = uniform_qc(c, n_valid * rs, hist_vals=hist_vals, **kw)
+    ok_t, st_t = uniform_qc_torch(c, n_valid * rs, hist_vals=hist_vals, **kw)
+    torch.cuda.synchronize()
+    assert bool(ok_k) == bool(ok_t) == case.startswith(("clean", "eq"))
+    for a, b in zip(st_k, st_t):
+        if a is not None:
+            assert torch.equal(a, b)
+    assert int(st_k.reads) == n_valid
