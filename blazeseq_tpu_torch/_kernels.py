@@ -14,6 +14,7 @@ nonzero return.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -37,9 +38,9 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     # seq, qual, lengths, codes, phred, n, L, col_offset, q_lo, q_hi,
-    # offset, check_ascii, check_quality, max_blocks, stream
+    # offset, check_ascii, check_quality, group, max_blocks, stream
     "bs_validate_decode": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
-                           _I, _I, _P),
+                           _I, _I, _I, _P),
     # chunk, nrec_valid, rs, o1, o2, o3, cnt, q_lo, q_hi, offset,
     # check_ascii, check_quality, bad, csq, csb, qh, gch, mqh, sm_count,
     # stream
@@ -152,7 +153,18 @@ def sm_count(device_index: int) -> int:
 
 
 def stream_ptr(device) -> int:
-    """The raw handle of PyTorch's current stream on `device`."""
+    """The raw handle of PyTorch's current stream on `device` (a CUDA
+    torch.device), without building a Stream object."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def on_device(device):
+    """A context that makes `device` current for a launch: nothing when it
+    already is, else torch.cuda.device(device)."""
+    import torch
+
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

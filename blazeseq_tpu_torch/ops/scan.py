@@ -63,15 +63,18 @@ def _structural_bitmaps_cuda(chunk):
     if not chunk.is_contiguous():
         raise ValueError("structural_bitmaps: chunk must be contiguous")
     lib = _kernels.load()
+    dev = chunk.device
     out = [torch.empty((rows, _WORDS_PER_ROW), dtype=torch.int32,
-                       device=chunk.device) for _ in range(3)]
-    counts = torch.empty((rows, 1), dtype=torch.int32, device=chunk.device)
-    with torch.cuda.device(chunk.device):
+                       device=dev) for _ in range(3)]
+    counts = torch.empty((rows, 1), dtype=torch.int32, device=dev)
+    # any chunk address: the kernel has a branch for views off 16-byte
+    # alignment. A grid of up to 64 blocks per SM takes a 256 MiB chunk in
+    # one step per thread (the fastest cap of 4-64 on the H100)
+    with _kernels.on_device(dev):
         err = lib.bs_structural_bitmaps(
             chunk.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
             out[2].data_ptr(), counts.data_ptr(), rows,
-            16 * _kernels.sm_count(chunk.device.index),
-            _kernels.stream_ptr(chunk.device))
+            64 * _kernels.sm_count(dev.index), _kernels.stream_ptr(dev))
     _kernels.check(err, "bs_structural_bitmaps")
     structural_bitmaps.launches += 1
     return out[0], out[1], out[2], counts

@@ -44,6 +44,15 @@ def validate_decode_torch(seq, qual, lengths, q_lower: int, q_upper: int,
     return codes, phred
 
 
+def lane_group(L: int, *ptrs: int) -> int:
+    """Lanes per row of the kernel's vector path (16 columns a lane, up to
+    32 lanes), or 0 for its byte path: rows of L % 16 != 0 bytes, empty
+    rows, or a pointer that is not 16-byte aligned."""
+    if L <= 0 or L % 16 or any(p % 16 for p in ptrs):
+        return 0
+    return min(32, 1 << (L // 16 - 1).bit_length())
+
+
 def _check_batch(seq, qual, lengths):
     for name, t, dt in (("seq", seq, torch.uint8), ("qual", qual, torch.uint8),
                         ("lengths", lengths, torch.int32)):
@@ -71,16 +80,17 @@ def _validate_decode_cuda(seq, qual, lengths, q_lower, q_upper, offset,
     _check_batch(seq, qual, lengths)
     lib = _kernels.load()
     n, L = seq.shape
-    codes = torch.empty(n, dtype=torch.int32, device=seq.device)
-    phred = torch.empty((n, L), dtype=torch.uint8, device=seq.device)
-    with torch.cuda.device(seq.device):
-        err = lib.bs_validate_decode(
-            seq.data_ptr(), qual.data_ptr(), lengths.data_ptr(),
-            codes.data_ptr(), phred.data_ptr(), n, L, int(col_offset),
-            int(q_lower), int(q_upper), int(offset), int(bool(check_ascii)),
-            int(bool(check_quality)),
-            4 * _kernels.sm_count(seq.device.index),
-            _kernels.stream_ptr(seq.device))
+    dev = seq.device
+    codes = torch.empty(n, dtype=torch.int32, device=dev)
+    phred = torch.empty((n, L), dtype=torch.uint8, device=dev)
+    ptrs = (seq.data_ptr(), qual.data_ptr(), phred.data_ptr())
+    args = (ptrs[0], ptrs[1], lengths.data_ptr(), codes.data_ptr(), ptrs[2],
+            n, L, int(col_offset), int(q_lower), int(q_upper), int(offset),
+            int(bool(check_ascii)), int(bool(check_quality)),
+            lane_group(L, *ptrs), 8 * _kernels.sm_count(dev.index),
+            _kernels.stream_ptr(dev))
+    with _kernels.on_device(dev):
+        err = lib.bs_validate_decode(*args)
     _kernels.check(err, "bs_validate_decode")
     validate_decode.launches += 1
     return codes, phred

@@ -422,57 +422,113 @@ def phase_build():
                                         time.perf_counter() - t0))
 
 
+def kernel_a_inputs(rng, n, L):
+    """seq, qual u8[n, L] and lengths i32[n] for kernel A: high-bit bytes,
+    out-of-range (and wrapping) quality bytes, lengths from 0 to past L."""
+    seq = _SEQ_LUT[rng.integers(0, 256, (n, L))]
+    qual = rng.integers(33, 75, (n, L), dtype=np.uint8)
+    k = max(1, n // 100)
+    seq[rng.integers(0, n, k), rng.integers(0, L, k)] |= 0x80
+    qual[rng.integers(0, n, k), rng.integers(0, L, k)] |= 0x80
+    qual[rng.integers(0, n, 2 * k), rng.integers(0, L, 2 * k)] = 20
+    qual[rng.integers(0, n, 2 * k), rng.integers(0, L, 2 * k)] = 100
+    lengths = rng.integers(0, L + 64, n).astype(np.int32)
+    lengths[:16] = 0
+    lengths[16:32] = L + 500
+    return seq, qual, lengths
+
+
+def kernel_a_bound(lengths, L, col_offset=0):
+    """bound() of one kernel A call on these lengths: seq and qual read
+    only where a row's length reaches (the rest need not be read), phred
+    written whole, lengths and codes; a range test, a high-bit test and the
+    subtract per byte."""
+    n = len(lengths)
+    inlen = np.clip(lengths.astype(np.int64) - col_offset, 0, L).sum()
+    return bound(2 * int(inlen) + n * L + 8 * n, 5 * n * L)
+
+
+# kernel A's timed shapes, each a "validate_decode" record of the JSON line:
+# the padded batch of run_file (4,096 x max_read_len 256), and a batch of
+# reads up to 1 kb at 8x the batch size, where device memory bounds it
+KERNEL_A_SHAPES = ((4096, 256), (32768, 1024))
+
+
 def phase_kernel_a(seed):
-    """Kernel A (validate) against its plain version on the card."""
+    """Kernel A (validate) against its plain version on the card, exact:
+    both shapes of KERNEL_A_SHAPES and L = 384 (col_offset 0 and 128,
+    three flag pairs), then edge batches (L = 1, 17, 100 and 513 and rows
+    one byte off alignment, on the byte path; lengths -5..L+9, col_offset
+    L + 3, quality bytes at the bounds and at 0x7F / 0x80 / 0xFF). Returns
+    one JSON record per shape, timed on the aligned inputs."""
     import torch
 
     from blazeseq_tpu_torch import parse_schema
-    from blazeseq_tpu_torch.ops.validate import (validate_decode,
+    from blazeseq_tpu_torch.ops.validate import (lane_group, validate_decode,
                                                  validate_decode_torch)
 
     rng = np.random.default_rng([seed, 1])
     schema = parse_schema("sanger")
     err = 0
     n_cases = 0
-    for L in (256, 384):
-        n = 4096
-        seq = _SEQ_LUT[rng.integers(0, 256, (n, L))].copy()
-        qual = rng.integers(33, 75, (n, L)).astype(np.uint8)
-        # high bits, out-of-range (and wrapping) quality bytes
-        seq[rng.integers(0, n, 40), rng.integers(0, L, 40)] |= 0x80
-        qual[rng.integers(0, n, 40), rng.integers(0, L, 40)] |= 0x80
-        qual[rng.integers(0, n, 80), rng.integers(0, L, 80)] = 20
-        qual[rng.integers(0, n, 80), rng.integers(0, L, 80)] = 100
-        lengths = rng.integers(0, L + 64, n).astype(np.int32)
-        lengths[:16] = 0
-        lengths[16:32] = L + 500
+
+    def compare(dseq, dqual, dlen, label, **kw):
+        nonlocal err, n_cases
+        got = validate_decode(dseq, dqual, dlen, schema, **kw)
+        want = validate_decode_torch(dseq, dqual, dlen, schema.LOWER,
+                                     schema.UPPER, schema.OFFSET, **kw)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_diff(got, want, "kernel A, %s %r"
+                                    % (label, kw)))
+        n_cases += 1
+
+    out = []
+    for n, L in KERNEL_A_SHAPES + ((4096, 384),):
+        seq, qual, lengths = kernel_a_inputs(rng, n, L)
         dseq, dqual, dlen = (torch.from_numpy(a).cuda()
                              for a in (seq, qual, lengths))
         for col_offset in (0, 128):
             for ca, cq in ((True, True), (True, False), (False, True)):
-                kw = dict(check_ascii=ca, check_quality=cq,
-                          col_offset=col_offset)
-                got = validate_decode(dseq, dqual, dlen, schema, **kw)
-                want = validate_decode_torch(
-                    dseq, dqual, dlen, schema.LOWER, schema.UPPER,
-                    schema.OFFSET, **kw)
-                torch.cuda.synchronize()
-                err = max(err, max_abs_diff(got, want, "kernel A, L=%d %r"
-                                            % (L, kw)))
-                n_cases += 1
-        if L == 256:
-            ms = cuda_ms(lambda: validate_decode(dseq, dqual, dlen, schema))
-            plain_ms = cuda_ms(lambda: validate_decode_torch(
-                dseq, dqual, dlen, schema.LOWER, schema.UPPER,
-                schema.OFFSET))
-            # a range test, a high-bit test and the subtract per byte
-            bnd = bound(nbytes(dseq, dqual, dlen, *validate_decode(
-                dseq, dqual, dlen, schema)), 5 * n * L)
-    log("kernel A == plain on %d cases; [4096, 256]: kernel %.4f ms, "
-        "plain %.4f ms, bound %.5f ms (%s)" % (n_cases, ms, plain_ms,
-                                              bnd["bound_ms"],
-                                              bnd["bound_by"]))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
+                compare(dseq, dqual, dlen, "[%d, %d]" % (n, L),
+                        check_ascii=ca, check_quality=cq,
+                        col_offset=col_offset)
+        if (n, L) not in KERNEL_A_SHAPES:
+            continue
+        group = lane_group(L, dseq.data_ptr(), dqual.data_ptr())
+        ms = cuda_ms(lambda: validate_decode(dseq, dqual, dlen, schema))
+        plain_ms = cuda_ms(lambda: validate_decode_torch(
+            dseq, dqual, dlen, schema.LOWER, schema.UPPER, schema.OFFSET),
+            inner=2)
+        bnd = kernel_a_bound(lengths, L)
+        log("kernel A [%d, %d] (%d lanes a row): kernel %.4f ms, plain "
+            "%.4f ms, bound %.5f ms (%s)" % (n, L, group, ms, plain_ms,
+                                             bnd["bound_ms"],
+                                             bnd["bound_by"]))
+        out.append(dict(shape=[n, L], ms=ms, plain_ms=plain_ms, **bnd))
+        del dseq, dqual, dlen
+    for L in (1, 17, 100, 513, 256):
+        n = 3000
+        seq, qual, lengths = kernel_a_inputs(rng, n, L)
+        lengths[32:37] = (-5, -1, 1, L, L + 9)
+        edges = np.array([33, 126, 0x7F, 0x80, 0xFF, 32, 127], np.uint8)
+        qual[np.arange(40, 47), rng.integers(0, L, 7)] = edges
+        dlen = torch.from_numpy(lengths).cuda()
+        for off in (0, 1):  # rows 16-byte aligned, or one byte off
+            flat = [torch.zeros(n * L + off, dtype=torch.uint8,
+                                device="cuda") for _ in range(2)]
+            for f, a in zip(flat, (seq, qual)):
+                f[off:].copy_(torch.from_numpy(a.reshape(-1)))
+            dseq, dqual = (f[off:].view(n, L) for f in flat)
+            for col_offset in (0, 7, L + 3):
+                for ca, cq in ((True, True), (True, False), (False, True),
+                               (False, False)):
+                    compare(dseq, dqual, dlen, "L=%d off=%d" % (L, off),
+                            check_ascii=ca, check_quality=cq,
+                            col_offset=col_offset)
+    log("kernel A == plain on %d cases" % n_cases)
+    for rec in out:
+        rec["max_abs_err"] = err
+    return out
 
 
 def _records(n, read_len, schema, rng, header_width=12):
@@ -922,9 +978,11 @@ def phase_align_run_file(seed, files, oracle):
 def phase_kernel_scan(seed):
     """The structural-bitmap kernel against its plain version on the card,
     bit-exact on all four outputs: a 256 MiB chunk of the smoke's records,
-    64 MiB of bytes drawn from {'\\n', '@', '+', 'A'}, and
-    count_records_device at N = 1, 127, 129 and 128k + 5 (zero padding).
-    Both timed on the 256 MiB chunk."""
+    64 MiB of bytes drawn from {'\\n', '@', '+', 'A'}, every byte value
+    beside each class byte, views of the records at 1, 5 and 16 bytes into
+    their storage (the kernel's unaligned branch), and
+    count_records_device at N = 1, 127, 129 and 128k + 5 (zero padding)
+    and on an unaligned view. Both timed on the 256 MiB chunk."""
     import torch
 
     from blazeseq_tpu_torch.ops.scan import (_pad_lane, count_records_device,
@@ -950,15 +1008,23 @@ def phase_kernel_scan(seed):
     soup = np.random.default_rng([seed, 5]).choice(
         np.frombuffer(b"\n@+A", np.uint8), 64 << 20)
     compare(torch.from_numpy(soup).cuda(), "64 MiB of '\\n@+A'")
-    for n in (1, 127, 129, 128 * 1024 + 5):
-        want = compare(_pad_lane(big[:n]), "N=%d" % n)
-        got = count_records_device(big[:n])
-        expect = int(np.count_nonzero(host[:n] == 10)) // 4
+    pairs = np.frombuffer(b"".join(bytes([v, c]) for c in b"\n@+"
+                                   for v in range(256)), np.uint8)
+    compare(torch.from_numpy(np.tile(pairs, 4)).cuda(),
+            "every byte beside each class byte")
+    for off in (1, 5, 16):
+        compare(big[off:off + (64 << 20)], "a view %d bytes in" % off)
+    for first, n in ((0, 1), (0, 127), (0, 129), (0, 128 * 1024 + 5),
+                     (3, 128 * 4096)):
+        want = compare(_pad_lane(big[first:first + n]),
+                       "N=%d from %d" % (n, first))
+        got = count_records_device(big[first:first + n])
+        expect = int(np.count_nonzero(host[first:first + n] == 10)) // 4
         if (got.dtype != torch.int32 or got.dim() != 0
                 or int(got) != expect
                 or int(want[3].sum()) // 4 != expect):
-            raise AssertionError("count_records_device(N=%d): %r, want %d"
-                                 % (n, got, expect))
+            raise AssertionError("count_records_device(N=%d from %d): %r, "
+                                 "want %d" % (n, first, got, expect))
     ms = cuda_ms(lambda: structural_bitmaps(big))
     plain_ms = cuda_ms(lambda: structural_bitmaps_torch(big), inner=2)
     # three byte-class tests per 4-byte word
@@ -1331,14 +1397,16 @@ def main(argv=None):
     log("end to end:", json.dumps(e2e))
     log("total %.1f s" % (time.perf_counter() - t_start))
     # no single PyTorch call computes any of the four functions, so none
-    # has a library time
+    # has a library time; kernel A has one record per shape of
+    # KERNEL_A_SHAPES
     print(json.dumps({"kernels": [
         dict(name="uniform_qc", route="cuda", source=KERNEL_B_SOURCE,
              replaces="blazeseq_tpu/ops/fused_qc.py:205",
              launches=launches["uniform_qc"], library_ms=None, **kb),
-        dict(name="validate_decode", route="cuda", source=KERNEL_A_SOURCE,
-             replaces="blazeseq_tpu/ops/validate.py:94",
-             launches=launches["validate_decode"], library_ms=None, **ka),
+        *(dict(name="validate_decode", route="cuda", source=KERNEL_A_SOURCE,
+               replaces="blazeseq_tpu/ops/validate.py:94",
+               launches=launches["validate_decode"], library_ms=None, **rec)
+          for rec in ka),
         dict(name="nw_scores", route="cuda", source=KERNEL_NW_SOURCE,
              replaces="blazeseq_tpu/ops/nw.py:174",
              launches=launches["nw_scores"], library_ms=None, **knw),

@@ -1,5 +1,5 @@
-"""Device times of the port's NW kernel and kernel B at the main paths'
-shapes, for one source tree or several in turn.
+"""Device times of the port's four kernels at the main paths' shapes, for
+one source tree or several in turn.
 
     python3 kernel_bench.py [--tree DIR ...] [--seed N]
 
@@ -13,13 +13,20 @@ compare two commits on one card). Shapes:
   QC batch of `run_file(align_to)`);
 * kernel B: one 256 MiB chunk (760,440 records of 353 bytes) of the
   uniform corpus, and of the quality-binned one, through the raw launch
-  (`_uniform_qc_raw_cuda`, without the torch epilogue).
+  (`_uniform_qc_raw_cuda`, without the torch epilogue);
+* kernel A (`validate_decode`): 4,096 x 256 (the padded batch of
+  `run_file`) and 32,768 x 1,024 (reads up to 1 kb, bound by device
+  memory), inputs from `chip_smoke.kernel_a_inputs`;
+* the scan kernel (`structural_bitmaps`): 256 MiB of the smoke's records
+  and 64 MiB of bytes drawn from {'\\n', '@', '+', 'A'}.
 
-`device_ms` queues the launches behind a sleeping kernel, so it is the
-card's time alone; `event_ms` times back-to-back calls with CUDA events,
-host launch cost included when the host is the slower side (both medians of
-5 trials). Prints one JSON line per tree, with the card's name and power
-limit. Needs a CUDA card.
+Each kernel is checked equal to its plain version first. `device_ms`
+queues the launches behind a sleeping kernel, so it is the card's time
+alone; `event_ms` times back-to-back calls with CUDA events, host launch
+cost included when the host is the slower side (both medians of 5 trials);
+`host_ms` is their difference. Kernel A and the scan kernel also carry
+`bound_ms` (chip_smoke.py's bound). Prints one JSON line per tree, with the
+card's name and power limit. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -66,16 +73,33 @@ def event_ms(fn, inner=10, trials=5):
     return _timed(fn, inner, trials, queue=False)
 
 
+def _times(fn, inner=10):
+    d, e = device_ms(fn, inner), event_ms(fn, inner)
+    return dict(device_ms=d, event_ms=e, host_ms=e - d)
+
+
+def _same(got, want, label):
+    import torch
+
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError("%s: kernel differs from plain" % label)
+
+
 def _one_tree(tree, seed):
+    # this script's chip_smoke (inputs and bounds; it imports the package
+    # only inside its functions), then the tree's package
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+
     sys.path.insert(0, tree)
-    sys.path.insert(1, HERE)
     import numpy as np
     import torch
 
-    import chip_smoke as cs
-    from blazeseq_tpu_torch import _kernels
+    from blazeseq_tpu_torch import _kernels, parse_schema
     from blazeseq_tpu_torch.ops import nw as nw_ops
+    from blazeseq_tpu_torch.ops import scan
     from blazeseq_tpu_torch.ops import uniform_qc as uqc
+    from blazeseq_tpu_torch.ops import validate
     from blazeseq_tpu_torch.ops.uniform_parse import detect_uniform_layout
 
     if not torch.cuda.is_available():
@@ -90,10 +114,8 @@ def _one_tree(tree, seed):
         d = [torch.from_numpy(a).cuda() for a in (
             rng.choice(acgt, (B, Lq)), np.full(B, Lr, np.int32),
             rng.choice(acgt, Lr))]
-        if not torch.equal(nw_ops.nw_scores(*d), nw_ops.nw_scores_torch(*d)):
-            raise AssertionError("%s: kernel differs from plain" % label)
-        out[label] = dict(device_ms=device_ms(lambda: nw_ops.nw_scores(*d)),
-                          event_ms=event_ms(lambda: nw_ops.nw_scores(*d)))
+        _same((nw_ops.nw_scores(*d),), (nw_ops.nw_scores_torch(*d),), label)
+        out[label] = _times(lambda: nw_ops.nw_scores(*d))
     n = (256 << 20) // cs.RS
     for label, binned in (("uniform_qc", False), ("uniform_qc_binned", True)):
         rec, _ = cs._make_block(seed, 10 ** 6, 0, n, binned)
@@ -102,16 +124,36 @@ def _one_tree(tree, seed):
         kw = dict(rs=lay.rs, o1=lay.o1, o2=lay.o2, o3=lay.o3, cnt=cs.READ_LEN,
                   q_lo=33, q_hi=126, offset=33, check_ascii=True,
                   check_quality=True)
-        got = uqc._uniform_qc_raw_cuda(c, n, **kw)
-        want = uqc._uniform_qc_raw_torch(c, n, **kw)
-        if not all(torch.equal(x, y) for x, y in zip(got, want)):
-            raise AssertionError("%s: kernel differs from plain" % label)
-        out[label] = dict(
-            device_ms=device_ms(lambda: uqc._uniform_qc_raw_cuda(c, n, **kw),
-                                inner=5),
-            event_ms=event_ms(lambda: uqc._uniform_qc_raw_cuda(c, n, **kw),
-                              inner=5))
+        _same(uqc._uniform_qc_raw_cuda(c, n, **kw),
+              uqc._uniform_qc_raw_torch(c, n, **kw), label)
+        out[label] = _times(lambda: uqc._uniform_qc_raw_cuda(c, n, **kw),
+                            inner=5)
         del c
+    schema = parse_schema("sanger")
+    arng = np.random.default_rng([seed, 1])
+    for n, L in cs.KERNEL_A_SHAPES:
+        label = "validate_decode_%dx%d" % (n, L)
+        seq, qual, lengths = cs.kernel_a_inputs(arng, n, L)
+        d = [torch.from_numpy(a).cuda() for a in (seq, qual, lengths)]
+        _same(validate.validate_decode(*d, schema),
+              validate.validate_decode_torch(*d, schema.LOWER, schema.UPPER,
+                                             schema.OFFSET), label)
+        out[label] = dict(_times(lambda: validate.validate_decode(*d, schema)),
+                          bound_ms=cs.kernel_a_bound(lengths, L)["bound_ms"])
+        del d
+    rec, _ = cs._make_block(seed, 10 ** 6 + 1, 0, cs.PARSE_CHUNK // cs.RS,
+                            False)
+    soup = np.random.default_rng([seed, 5]).choice(
+        np.frombuffer(b"\n@+A", np.uint8), 64 << 20)
+    for label, host in (("structural_bitmaps_records", rec.reshape(-1)),
+                        ("structural_bitmaps_soup", soup)):
+        c = scan._pad_lane(torch.from_numpy(host).cuda())
+        got = scan.structural_bitmaps(c)
+        _same(got, scan.structural_bitmaps_torch(c), label)
+        out[label] = dict(_times(lambda: scan.structural_bitmaps(c)),
+                          bound_ms=cs.bound(cs.nbytes(c, *got),
+                                            3 * c.numel() // 4)["bound_ms"])
+        del c, got
     return out
 
 

@@ -69,8 +69,15 @@ def _structural_soup(n, seed):
     return rng.choice(np.frombuffer(b"\n@+A", np.uint8), n).tobytes()
 
 
+def _class_pairs():
+    """Every byte value beside each class byte, on both sides: v c v' c ...
+    for the three classes, at every offset within a word."""
+    return b"".join(bytes([v, c]) for c in b"\n@+" for v in range(256))
+
+
 BITMAP_INPUTS = {
     "records": lambda: b"@r1\nACGT\n+\nIIII\n" * 8,
+    "class_pairs": _class_pairs,
     "mixed_fastq": lambda: _mixed_fastq(200),
     "soup": lambda: _structural_soup(1 << 14, 1),
     "all_bytes": lambda: np.random.default_rng(2).integers(
@@ -89,6 +96,20 @@ def test_bitmaps_match_pallas_kernel(name):
     _eq(got, want)
     assert int(got[3].sum()) == data.count(b"\n")
     assert got[0].dtype == torch.int32 and got[3].shape[1] == 1
+
+
+@pytest.mark.parametrize("offset", [1, 5, 16])
+def test_bitmaps_match_pallas_kernel_on_a_view(offset):
+    """A chunk that starts `offset` bytes into its storage (the class pairs
+    and a soup), as a caller's slice chunk[offset:offset + 128k] gives it."""
+    ref = _ref()
+    data = _class_pairs() + _structural_soup(1 << 12, 4)
+    n = (len(data) - offset) // 128 * 128
+    view = _t(data)[offset:offset + n]
+    assert view.storage_offset() == offset and view.is_contiguous()
+    want = ref.structural_bitmaps(
+        np.frombuffer(data, np.uint8)[offset:offset + n])
+    _eq(scan.structural_bitmaps(view), want)
 
 
 def test_bitmap_bit_layout():
@@ -275,11 +296,36 @@ def _needs_card():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
 
 
-@pytest.mark.parametrize("name", sorted(BITMAP_INPUTS))
+def _card_soup(n, seed):
+    """n bytes on the card: a soup of the class bytes and random bytes."""
+    rng = np.random.default_rng(seed)
+    host = np.where(rng.random(n) < 0.5,
+                    rng.choice(np.frombuffer(b"\n@+", np.uint8), n),
+                    rng.integers(0, 256, n, dtype=np.uint8)).astype(np.uint8)
+    return torch.from_numpy(host).cuda()
+
+
+# chunks that exist only on the card: sizes around the kernel's steps,
+# views off 16-byte alignment, and a full 256 MiB chunk
+CARD_CHUNKS = {
+    **{"N=%d" % n: (lambda n=n: _card_soup(n, n))
+       for n in [128, 256, 384] + [128 * (2 ** k + 1)
+                                   for k in (3, 7, 10, 13, 17)]},
+    "chunk[16:]": lambda: _card_soup(128 * 1031 + 16, 7)[16:],
+    "chunk[1:1+128k]": lambda: _card_soup(128 * 1031 + 1, 8)[1:],
+    "chunk[5:5+128k] of the class pairs": lambda: _t(
+        b"\0" * 5 + _class_pairs() * 2).cuda()[5:5 + 3072],
+    "256 MiB": lambda: _card_soup(256 << 20, 9),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BITMAP_INPUTS) + sorted(CARD_CHUNKS))
 def test_bitmaps_kernel_matches_plain_on_card(name):
     _needs_card()
-    data = BITMAP_INPUTS[name]()
-    chunk = scan._pad_lane(_t(data)).cuda()
+    if name in BITMAP_INPUTS:
+        chunk = scan._pad_lane(_t(BITMAP_INPUTS[name]())).cuda()
+    else:
+        chunk = CARD_CHUNKS[name]()
     before = scan.structural_bitmaps.launches
     got = scan.structural_bitmaps(chunk)
     want = scan.structural_bitmaps_torch(chunk)
