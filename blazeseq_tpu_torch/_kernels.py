@@ -26,7 +26,8 @@ import tempfile
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("validate.cu", "uniform_qc.cu", "nw.cu", "scan.cu")
+SOURCES = ("validate.cu", "uniform_qc.cu", "nw.cu", "scan.cu",
+           "ragged_qc.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "libblazeseq_kernels.so"
@@ -55,6 +56,11 @@ _SIGNATURES = {
     "bs_nw_smem_bytes": (_I, _I),
     # chunk, nl, at, plus, counts, rows, max_blocks, stream
     "bs_structural_bitmaps": (_P, _P, _P, _P, _P, _LL, _I, _P),
+    # chunk, nl_words, excl, rows, n_valid, positions, n_lines, stream
+    "bs_ragged_lines": (_P, _P, _P, _LL, _LL, _P, _P, _P),
+    # chunk, positions, n_lines, n_valid, width, q_lo, q_hi, offset,
+    # check_ascii, check_quality, out, sm_count, stream
+    "bs_ragged_qc": (_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P, _I, _P),
 }
 
 

@@ -1,6 +1,6 @@
 """QCModel: streaming FastQC-style quality control of a FASTQ file
-(counterpart of blazeseq_tpu/models/qc.py: the uniform-layout tier and the
-host-parse path).
+(counterpart of blazeseq_tpu/models/qc.py: the uniform, semi-uniform and
+ragged tiers of run_file_device, and the host-parse path).
 
 `run_file(path)` (and `run_reader` / `run_parser`) parses on the host into
 padded batches; the device runs validate + QC and, with `align_to`, the
@@ -9,16 +9,40 @@ scan, the read hashes of the duplication panel and the per-position
 quality distribution when asked for. Device totals are flushed to the host
 int64 accumulator every 64 batches.
 
-`run_file_device(path)` covers core QC only. It maps the file, reads the
-record layout from its head, and sends rs-aligned raw byte chunks to the
-device through the overlapped feed (parallel/ingest.py). One pass per chunk
-proves the layout and computes every QC panel (ops/uniform_qc.py); the host
-adds the results in int64. Input outside that tier goes through
-`_host_consume`: the host parser builds padded batches, and the device runs
-validate + qc_stats on them (parallel/pipeline.py). That covers a chunk
-that fails the proof and everything after it, a trailing partial record, a
-file whose head is not uniform, and gzip input. The report is the same on
-either route.
+`run_file_device(path)` covers core QC only. It maps a plain FASTQ file and
+sends raw byte chunks to the device through the overlapped feed
+(parallel/ingest.py); the host adds each chunk's results in int64. Three
+tiers, each counted in `tier_chunks`:
+
+* uniform: every record has one layout (read from the file head); one
+  pass per rs-aligned chunk proves the layout and computes every QC panel
+  (ops/uniform_qc.py);
+* semi: one read length with ids of varying width; the host rewrites each
+  record's id to a fixed width (native.normalize_semi_uniform) straight
+  into the feed's staging buffers, and the uniform pass runs on the
+  result;
+* ragged: any other layout; chunks are cut at record boundaries found on
+  the host (parallel/sharding.py) and one pass per chunk parses, validates
+  and computes every panel (ops/ragged_qc.py). The chunk size is the
+  caller's `chunk_mb`, up to 256 MiB (the reference caps it at 128 MB):
+  the step's sums are int32, and a per-position Phred sum stays exact up
+  to 2**28 bytes even for 8-byte records of Phred 63.
+
+The uniform tier hands a chunk that fails its proof, and everything after
+it, to the semi tier; the semi tier hands what it cannot take (a proof
+failure, from that chunk's original start; a head that is not semi-uniform;
+a record larger than half a chunk) to the ragged tier. What the ragged tier
+rejects (invalid bytes, from that chunk's start) and the trailing partial
+record go through `_host_consume`: the host parser builds padded batches,
+and the device runs validate + qc_stats on them (parallel/pipeline.py). So
+does gzip input. The report is the same on every route.
+
+The port keeps two routes of its own, with equal reports: a uniform layout
+that kernel B refuses on the card (more than 512 stats columns, or odd
+records above ~3.9 KB, see ops/uniform_qc.kernel_takes) goes to the ragged
+tier, where the reference stays on its uniform kernel; and a chunk that the
+reference's ragged step reports as `fallback` stays on the device (the
+port's ragged kernel has no slot capacity).
 """
 
 from __future__ import annotations
@@ -29,6 +53,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import native
 from ..constants import DEFAULT_BATCH_SIZE
 from ..fastq.parser import FastqParser, ParserConfig
 from ..fastq.quality import QualitySchema, parse_schema
@@ -37,16 +62,23 @@ from ..ops.adapter import adapter_content
 from ..ops.common import resolve_device, round_up
 from ..ops.dedup import (duplication_levels, overrepresented_sequences,
                          read_hashes)
+from ..ops.ragged_qc import ragged_qc
 from ..ops.stats import MAX_PHRED, QCAccumulator, zero_stats
-from ..ops.uniform_parse import detect_uniform_layout
+from ..ops.uniform_parse import UniformLayout, detect_uniform_layout
 from ..ops.uniform_qc import kernel_takes, uniform_qc
 from ..parallel.ingest import OverlappedIngest
 from ..parallel.pipeline import build_qc_align_step
+from ..parallel.sharding import find_record_boundary_bytes
 
 # padded read widths round up to this many columns
 _WIDTH_UNIT = 128
 # run_parser flushes its device-resident totals to the host this often
 _FLUSH_EVERY = 64
+# the ragged tier's largest chunk: 2**28 bytes hold at most 2**25 records
+# with a quality byte, so a per-position Phred sum (at most 63 a record)
+# stays inside int32
+_RAGGED_MAX_MB = 256
+_TIERS = ("uniform", "semi", "ragged", "host")
 
 
 @dataclass
@@ -198,7 +230,7 @@ class QCModel:
             with_alignment=align_to is not None,
             qual_hist_2d=track_quartiles)
         # chunks / padded batches each route took in the last pass
-        self.tier_chunks = {"uniform": 0, "host": 0}
+        self.tier_chunks = dict.fromkeys(_TIERS, 0)
 
     def _resolve_auto_schema(self, path) -> None:
         if self._auto_schema:
@@ -285,10 +317,13 @@ class QCModel:
 
     def run_file_device(self, path, chunk_mb: int = 256,
                         parallelism: int = 4) -> QCReport:
-        """QC of one FASTQ file on the device. Device chunks build the Phred
-        histogram in eq-mode over the values seen in the file head; a
-        nonzero remainder bin in the report triggers ONE full-bin re-run,
-        so the result never depends on the peek."""
+        """QC of one FASTQ file on the device (see the module docstring).
+        Uniform-tier chunks build the Phred histogram in eq-mode over the
+        values seen in the file head; a nonzero remainder bin in the report
+        triggers ONE full-bin re-run, so the result never depends on the
+        peek. The semi and ragged tiers take full bins: their kernels build
+        every bin whatever the set, so a peek would buy them nothing and
+        cost a second pass over the file whenever it missed a value."""
         self._hist_his = set()
         rep = self._run_file_device_once(path, chunk_mb, parallelism,
                                          adaptive=True)
@@ -301,10 +336,9 @@ class QCModel:
     def _run_file_device_once(self, path, chunk_mb: int = 256,
                               parallelism: int = 4,
                               adaptive: bool = True) -> QCReport:
-        """One pass over the file: uniform chunks on the device; anything
-        the uniform tier cannot prove through _host_consume (see the module
-        docstring). Reads longer than max_read_len are truncated only in
-        the per-position panels, as in the reference."""
+        """One pass over the file through the tiers of the module
+        docstring. Reads longer than max_read_len are truncated only in the
+        per-position panels, as in the reference."""
         if (self.adapters or self.track_duplicates or self.mesh is not None
                 or self.align_to is not None or self.track_quartiles):
             raise ValueError(
@@ -312,7 +346,7 @@ class QCModel:
                 "adapters/duplicates/alignment/quartiles/mesh")
         p = str(path)
         self._resolve_auto_schema(p)
-        self.tier_chunks = {"uniform": 0, "host": 0}
+        self.tier_chunks = dict.fromkeys(_TIERS, 0)
         acc = QCAccumulator()
         if p.endswith(".gz") or p.endswith(".bgz"):
             self._host_consume(self._parser(
@@ -324,10 +358,14 @@ class QCModel:
             self._host_consume(self._parser(reader), acc)
             return self._report_from_acc(acc)
         lay = detect_uniform_layout(data)
-        if lay is None or lay.rs > chunk_mb << 19 or (
-                self.device.type == "cuda" and not kernel_takes(
-                    lay.rs, min(lay.seq_len, self.max_read_len))):
-            self._host_consume(self._parser(MemoryReader(data)), acc)
+        if lay is None or lay.rs > chunk_mb << 19:
+            # semi-uniform tier first; it hands what it declines to the
+            # general ragged tier
+            self._run_normalized_mmap(data, chunk_mb, acc)
+            return self._report_from_acc(acc)
+        if not self._kernel_takes(lay.rs, lay.seq_len):
+            # the port's own route: the ragged kernel takes any layout
+            self._run_ragged_mmap(data, chunk_mb, acc)
             return self._report_from_acc(acc)
         total = len(data)
         csize = max((chunk_mb << 20) // lay.rs, 1) * lay.rs
@@ -339,7 +377,7 @@ class QCModel:
         # Full-size chunks are read-only slices of the mapping; the device
         # works `depth` chunks behind the dispatch front. A chunk's verdict
         # arrives late: chunks dispatched after a failure are discarded and
-        # the host route resumes from the failed chunk's start.
+        # the next tier resumes from the failed chunk's start.
         ing = OverlappedIngest(uqc, csize, row_bytes=lay.rs,
                                device=self.device)
         fail_pos = None
@@ -353,7 +391,7 @@ class QCModel:
                     acc.add(st)
                     self.tier_chunks["uniform"] += 1
                 else:
-                    fail_pos = meta  # proof failed: host from this boundary
+                    fail_pos = meta  # proof failed: next tier from here
         pos = 0
         while pos < total and fail_pos is None:
             b = min(pos + csize, total)
@@ -372,10 +410,198 @@ class QCModel:
         consume(ing.drain())
         # fail_pos and pos are proven record boundaries: every accepted
         # chunk ends at one
-        rest = fail_pos if fail_pos is not None else pos
-        if rest < total:
-            self._host_consume(self._parser(MemoryReader(data[rest:])), acc)
+        if fail_pos is not None:
+            # the head looked uniform and the rest is not (or holds invalid
+            # bytes): the semi tier, then the ragged tier, then the host
+            # route take the remainder
+            self._run_normalized_mmap(data[fail_pos:], chunk_mb, acc)
+        elif pos < total:
+            self._host_consume(self._parser(MemoryReader(data[pos:])), acc)
         return self._report_from_acc(acc)
+
+    def _kernel_takes(self, rs: int, seq_len: int) -> bool:
+        """Whether kernel B takes records of `rs` bytes on this model's
+        device (the plain version on the CPU takes every layout)."""
+        return self.device.type != "cuda" or kernel_takes(
+            rs, min(seq_len, self.max_read_len))
+
+    @staticmethod
+    def _peek_semi_uniform(data, head_bytes=1 << 16, margin=16):
+        """(L, idw) for the semi-uniform tier from a host peek at the
+        corpus head: fixed seq/qual length L, bare '+' separators, id text
+        up to idw bytes (max observed + margin). A sizing hint only: the
+        normalizer re-checks every record and the device proof re-verifies
+        every produced chunk. None when the head is not semi-uniform (mixed
+        lengths, '+' with text, malformed)."""
+        head = np.asarray(data[: min(len(data), head_bytes)])
+        nl = np.flatnonzero(head == 10)
+        k = len(nl) // 4
+        if k < 1:
+            return None
+        id_nl = nl[0:4 * k:4]
+        seq_nl = nl[1:4 * k:4]
+        sep_nl = nl[2:4 * k:4]
+        qual_nl = nl[3:4 * k:4]
+        starts = np.empty(k, np.int64)
+        starts[0] = 0
+        starts[1:] = qual_nl[:-1] + 1
+        L = int(seq_nl[0] - id_nl[0] - 1)
+        if L <= 0:
+            return None
+        ok = head[starts] == ord("@")
+        ok &= (seq_nl - id_nl - 1) == L
+        ok &= (sep_nl - seq_nl) == 2
+        ok &= head[np.minimum(seq_nl + 1, len(head) - 1)] == ord("+")
+        ok &= (qual_nl - sep_nl - 1) == L
+        if not ok.all():
+            return None
+        return L, int((id_nl - starts - 1).max()) + margin
+
+    def _run_normalized_mmap(self, data, chunk_mb: int, acc) -> None:
+        """Semi-uniform tier: fixed read length, ids of varying width. The
+        host rewrites each record's id line to a fixed width (trailing
+        spaces; QC reads no id byte) straight into the feed's staging
+        buffers, and kernel B runs on the normalized chunks.
+
+        The device proof re-verifies every produced chunk; a failure hands
+        the rest, from that chunk's ORIGINAL start offset, to the ragged
+        tier. A normalizer stop mid-file re-peeks: a wider id on the same
+        read length widens idw, a new read length restarts with that
+        block's layout, and no progress ends the tier. A head that is not
+        semi-uniform, a record larger than half a chunk and a normalized
+        layout that kernel B refuses on the card leave the rest to the
+        ragged tier too."""
+        peek = self._peek_semi_uniform(data)
+        total = len(data)
+        pos = 0
+        while peek is not None and pos < total:
+            L, idw = peek
+            rs = idw + 2 * L + 6
+            if rs > (chunk_mb << 19) or not self._kernel_takes(rs, L):
+                break
+            lay = UniformLayout(rs=rs, o1=idw + 1, o2=idw + 2 + L,
+                                o3=idw + 4 + L)
+            uqc = self._device_uqc(lay, self.max_read_len)
+            csize = max((chunk_mb << 20) // rs, 1) * rs
+            # never more rows than the rest of the file can fill: every
+            # source record holds at least 2L + 6 bytes
+            csize = min(csize, ((total - pos) // (2 * L + 6) + 1) * rs)
+            ing = OverlappedIngest(uqc, csize, row_bytes=rs,
+                                   device=self.device)
+            fail_orig = None
+
+            def consume(ready):
+                nonlocal fail_orig
+                for meta, (ok, st) in ready:
+                    if fail_orig is not None:
+                        continue
+                    if bool(ok):
+                        acc.add(st)
+                        self.tier_chunks["semi"] += 1
+                    else:
+                        fail_orig = meta  # the chunk's ORIGINAL start
+            stalled = False
+            while pos < total and fail_orig is None:
+                buf = ing.acquire()
+                nrec, consumed = native.normalize_semi_uniform(
+                    data, pos, buf, idw, L)
+                if nrec == 0:
+                    stalled = True
+                    break
+                consume(ing.feed(buf, nrec * rs, meta=pos))
+                pos = consumed
+            consume(ing.drain())
+            if fail_orig is not None:
+                pos = fail_orig
+                break  # rejected on the device: the rest leaves this tier
+            if not stalled or pos >= total:
+                break
+            peek = self._peek_semi_uniform(data[pos:])
+            if peek is None:
+                break
+            L2, idw2 = peek
+            if L2 == L and idw2 <= idw:
+                break  # no progress possible: stop re-peeking
+            # same L: an id outgrew the bound, keep the wider of the two;
+            # new L: a block boundary, restart with its layout
+            peek = (L2, max(idw2, idw) if L2 == L else idw2)
+        if pos < total:
+            self._run_ragged_mmap(data[pos:], chunk_mb, acc)
+
+    def _device_rqc(self, c, n_valid):
+        """The ragged-layout device step: parse + validate + QC of a chunk
+        whose header widths and read lengths vary per record
+        (ops/ragged_qc.py), with full-bin histograms."""
+        return ragged_qc(
+            c, n_valid, width=self.max_read_len,
+            q_lo=int(self.schema.LOWER), q_hi=int(self.schema.UPPER),
+            offset=int(self.schema.OFFSET), check_ascii=self.check_ascii,
+            check_quality=self.check_quality)
+
+    def _run_ragged_mmap(self, data, chunk_mb: int, acc) -> None:
+        """Ragged tier: chunks cut at record boundaries by a host resync
+        (parallel/sharding.find_record_boundary_bytes), so every chunk is
+        independent and the feed overlaps as on the uniform tier. The
+        device re-proves each chunk (validation, and a tail at the chunk's
+        end unless it is the file's last); a rejected chunk, a wrong host
+        cut included, hands the rest from its start to the host route, as
+        does the last chunk's partial tail."""
+        K = 2 * self.max_read_len
+        total = len(data)
+        chunk_mb = min(chunk_mb, _RAGGED_MAX_MB)
+        csize = max((chunk_mb << 20) // K, 1) * K
+        csize = min(csize, -(-total // K) * K)
+        ing = OverlappedIngest(self._device_rqc, csize, device=self.device)
+        fail_pos = None  # the host route takes over from this byte offset
+
+        def consume(ready):
+            nonlocal fail_pos
+            for (pos_m, nv_m, last), r in ready:
+                if fail_pos is not None:
+                    continue
+                tail = int(r.tail_start)
+                good = bool(r.ok) and not bool(r.fallback) and tail > 0 \
+                    and (tail == nv_m or last)
+                if not good:
+                    fail_pos = pos_m
+                    continue
+                acc.add(r.stats)
+                self.tier_chunks["ragged"] += 1
+                if last and tail < nv_m:
+                    fail_pos = pos_m + tail  # the file's partial tail
+
+        pos = 0
+        while pos < total and fail_pos is None:
+            cut = min(pos + csize, total)
+            if cut < total:
+                # the resync scans FORWARD: probe from a little before the
+                # capacity limit and take the first boundary it proves,
+                # backing off further for records longer than the window
+                # (a short probe keeps the pure-Python scan cheaper than the
+                # chunk copy). A cut past pos + csize cannot fit the
+                # staging buffer; no provable boundary leaves the rest to
+                # the host route.
+                back = 4096
+                while True:
+                    cut = find_record_boundary_bytes(
+                        data, max(pos + 1, pos + csize - back),
+                        probe=back + 8192)
+                    if cut <= pos + csize or back >= csize:
+                        break
+                    back *= 4
+                if cut <= pos or cut > pos + csize:
+                    break
+            nv = cut - pos
+            buf = ing.acquire()
+            buf[:nv] = data[pos:cut]
+            buf[nv:] = 0
+            consume(ing.feed(buf, nv, meta=(pos, nv, cut >= total)))
+            pos = cut
+        consume(ing.drain())
+        if fail_pos is not None:
+            pos = fail_pos
+        if pos < total:
+            self._host_consume(self._parser(MemoryReader(data[pos:])), acc)
 
     def _parser(self, reader) -> FastqParser:
         """Structure-only host parser: validation runs on the device, so bad

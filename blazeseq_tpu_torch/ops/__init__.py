@@ -6,8 +6,9 @@ ported module. The reference's `*_pallas` / `*_xla` pairs become one
 dispatching op and its plain torch version: `validate_decode` /
 `validate_decode_torch`, `nw_scores` / `nw_scores_torch`, and the XLA-only
 alignment variants drop the suffix (`sw_scores`, `nw_affine_scores`, ...).
-Not ported yet: `ragged_qc` (ROADMAP Queue 1 item 8); `use_interpret` is a
-TPU-only knob.
+`ragged_qc` (XLA code in the reference) gets a hand-written kernel too, and
+`ragged_qc_torch` beside it. `use_interpret` is a TPU-only knob and is not
+ported.
 """
 
 from .adapter import AdapterStats, adapter_content, adapter_content_cpu
@@ -24,6 +25,7 @@ from .nw import (needleman_wunsch_affine_cpu, needleman_wunsch_cpu,
                  semiglobal_affine_cpu, semiglobal_cpu,
                  smith_waterman_affine_cpu, smith_waterman_cpu,
                  sw_affine_scores, sw_scores)
+from .ragged_qc import RaggedQC, ragged_qc, ragged_qc_torch
 from .raw_stats import RawStreamQC, raw_stream_qc
 from .scan import (count_records_device, gather_padded_device,
                    newline_positions_device, parse_fastq_device,

@@ -4,12 +4,17 @@
 
 Builds the port's CUDA kernels from blazeseq_tpu_torch/csrc (one nvcc per
 source, all started together), holds each kernel against its plain torch
-version on the card, then drives the port's paths, each with the launch
-counts set to 0 just before it and read just after:
+version on the card (the ragged kernels on their edge cases and a 256 MiB
+chunk of the ragged corpus below), then drives the port's paths, each with
+the launch counts set to 0 just before it and read just after:
 
 * QCModel(device="cuda").run_file_device over a 2 GiB uniform FASTQ file
   and a 1 GiB quality-binned one, each checked panel by panel against an
   independent numpy oracle;
+* run_file_device over a 1 GiB semi-uniform file (150 bp reads, ids of
+  varying width) and the 1 GiB ragged file (reads of 35-300 bp, ids of
+  10-60 bytes), every chunk on the semi and the ragged tier, each against
+  the numpy oracle and against run_file (the host route) on the same file;
 * its fallback route (a mid-file quality error and a trailing partial
   record) against the same call on the CPU;
 * NWAligner on 1M reads x 40 bp against a 40 bp reference in batches of
@@ -19,8 +24,8 @@ counts set to 0 just before it and read just after:
   against the numpy twin, and every panel of a 20,000-read prefix against
   the same call on the CPU;
 * the device-parse API (raw_stream_qc, count_records_device,
-  parse_fastq_device) over a 1 GiB ragged FASTQ in 256 MiB chunks, against
-  the host parser and the generator;
+  parse_fastq_device) over the 1 GiB ragged FASTQ in 256 MiB chunks,
+  against the host parser and the generator;
 * the command line (python -m blazeseq_tpu_torch: stats, stats --device,
   trim in three modes, demux, merge, tiles) in-process on the card over
   the 1M-read file and 250,000 read pairs, against the host twins, and on
@@ -66,6 +71,7 @@ KERNEL_B_SOURCE = "blazeseq_tpu_torch/csrc/uniform_qc.cu"
 KERNEL_A_SOURCE = "blazeseq_tpu_torch/csrc/validate.cu"
 KERNEL_NW_SOURCE = "blazeseq_tpu_torch/csrc/nw.cu"
 KERNEL_SCAN_SOURCE = "blazeseq_tpu_torch/csrc/scan.cu"
+KERNEL_RAGGED_SOURCE = "blazeseq_tpu_torch/csrc/ragged_qc.cu"
 # the upstream nw_gpu example: 1M reads x 40 bp against a 40 bp reference
 NW_READS = 1_000_000
 NW_READ_LEN = 40
@@ -87,6 +93,13 @@ RAGGED_ID = (10, 60)  # id widths after the '@', inclusive
 RAGGED_MIN_RECORD = RAGGED_ID[0] + 2 * RAGGED_LEN[0] + 6
 _ID_LUT = np.frombuffer(b"ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789:_.-", np.uint8)
 PARSE_CHUNK = 256 << 20
+# QCModel's default stats window (max_read_len)
+QC_WIDTH = 256
+# run_file_device(semi): 150 bp reads under Illumina-style ids whose tile,
+# x and y fields are not zero-padded
+SEMI_BYTES = 1 << 30
+SEMI_PREFIX = b"@A00123:8:H7GKLDSXX:1:"
+SEMI_SUFFIX = b" 1:N:0:1"
 # merge: 250,000 pairs from 200 bp fragments, R1 = the first 150 bp, R2 =
 # the reverse complement of the last 150
 MATE_PAIRS = 250_000
@@ -216,10 +229,48 @@ def _exclusive_cumsum(a):
     return out
 
 
+def _window_oracle(cls, phred, col, rec, read_len, width):
+    """The QC panels of reads (flat base classes, Phreds, columns and
+    record indices; read_len per record) over a stats window of `width`
+    columns, as int64 numpy arrays (see check_report)."""
+    w = col < width
+    cls, phred, col, rec = cls[w], phred[w], col[w], rec[w]
+    n = len(read_len)
+    gc = np.bincount(rec, ((cls == 1) | (cls == 2)).astype(np.int64), n)
+    qs = np.bincount(rec, phred.astype(np.int64), n)
+    eff = np.minimum(read_len, width)
+    count = np.bincount(eff, minlength=width + 1)[::-1].cumsum()[::-1][1:]
+    has = eff > 0
+    e = eff[has]
+    return dict(
+        reads=n, bases=int(read_len.sum()),
+        base_pp=np.bincount(cls * width + col, minlength=5 * width).reshape(
+            5, width),
+        count=count,
+        qual_pp=np.bincount(col, phred.astype(np.int64), width).astype(
+            np.int64),
+        qual_hist=np.bincount(phred, minlength=64),
+        length_hist=np.bincount(np.minimum(read_len, 511), minlength=512),
+        gc_hist=np.bincount((200 * gc.astype(np.int64)[has] + e) // (2 * e),
+                            minlength=101),
+        mq_hist=np.bincount(np.minimum((2 * qs.astype(np.int64)[has] + e)
+                                       // (2 * e), 63), minlength=64))
+
+
+def _sum_oracles(parts):
+    out = dict(parts[0])
+    for p in parts[1:]:
+        for k, v in p.items():
+            out[k] = out[k] + v
+    return out
+
+
 def write_ragged_corpus(path, target_bytes, seed):
     """Write records of RAGGED_LEN read lengths and RAGGED_ID id widths up
     to `target_bytes` (threads fill blocks of records and pwrite them).
-    Returns the oracle totals and every record's start offset."""
+    Returns the oracle totals (whole reads; under "window", the panels of
+    QCModel's default 256-column window), and every record's start
+    offset."""
     rng = np.random.default_rng([seed, 99])
     cap = target_bytes // RAGGED_MIN_RECORD + 1
     read_len = rng.integers(RAGGED_LEN[0], RAGGED_LEN[1] + 1, cap)
@@ -244,11 +295,11 @@ def write_ragged_corpus(path, target_bytes, seed):
         draw = brng.integers(0, 256, int(rl.sum()), dtype=np.uint8)
         phred = brng.integers(2, 42, len(draw), dtype=np.uint8)
         rec = np.repeat(np.arange(hi - lo), rl)
-        seq_pos = (st[rec] + il[rec] + 2 + np.arange(len(rec))
-                   - np.repeat(_exclusive_cumsum(rl), rl))
+        col = np.arange(len(rec)) - np.repeat(_exclusive_cumsum(rl), rl)
+        seq_pos = st[rec] + il[rec] + 2 + col
         buf[seq_pos] = _SEQ_LUT[draw]
         buf[seq_pos + rl[rec] + 3] = phred + 33
-        del rec, seq_pos
+        del seq_pos
         sep = st + il + 2 + rl
         buf[st] = ord("@")
         buf[st + il + 1] = 10
@@ -260,8 +311,10 @@ def write_ragged_corpus(path, target_bytes, seed):
         while len(view):
             k = os.pwrite(fd, view, off)
             view, off = view[k:], off + k
-        return (np.bincount(_CLASS_LUT[draw], minlength=5),
-                np.bincount(phred, minlength=64))
+        cls = _CLASS_LUT[draw]
+        return (np.bincount(cls, minlength=5),
+                np.bincount(phred, minlength=64),
+                _window_oracle(cls, phred, col, rec, rl, QC_WIDTH))
 
     try:
         with cf.ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
@@ -271,8 +324,201 @@ def write_ragged_corpus(path, target_bytes, seed):
     oracle = dict(reads=n, bases=int(read_len.sum()),
                   bytes=int(size.sum()),
                   base_counts=sum(p[0] for p in parts),
-                  qual_hist=sum(p[1] for p in parts))
+                  qual_hist=sum(p[1] for p in parts),
+                  window=_sum_oracles([p[2] for p in parts]))
     return oracle, np.append(starts, oracle["bytes"])
+
+
+def _semi_block(seed, block, start, n):
+    """Records [start, start+n) of the semi-uniform corpus, as bytes: the
+    uniform block's reads (and its oracle partials) under Illumina-style
+    ids whose tile, x and y fields are not zero-padded, so that the id
+    widths vary by several bytes."""
+    rec, part = _make_block(seed, block, start, n, False)
+    rng = np.random.default_rng([seed, block, 5])
+    fields = (rng.integers(1101, 2229, n), rng.integers(1, 32001, n),
+              rng.integers(1, 40001, n))
+    body = rec[:, len(HEADER):]  # '\n' seq '\n+\n' qual '\n'
+    width = len(SEMI_PREFIX) + 4 + 2 * 6 + len(SEMI_SUFFIX)
+    mat = np.zeros((n, width + body.shape[1]), np.uint8)
+    mat[:, :len(SEMI_PREFIX)] = np.frombuffer(SEMI_PREFIX, np.uint8)
+    at = np.full(n, len(SEMI_PREFIX))
+    rows = np.arange(n)
+    for k, v in enumerate(fields):
+        if k:
+            mat[rows, at] = ord(":")
+            at = at + 1
+        digits = 1 + sum((v >= 10 ** d).astype(np.int64) for d in range(1, 5))
+        for d in range(5):
+            m = d < digits
+            mat[rows[m], at[m] + digits[m] - 1 - d] = (
+                v[m] // 10 ** d % 10 + 48)
+        at = at + digits
+    for k, c in enumerate(SEMI_SUFFIX):
+        mat[rows, at + k] = c
+    at = at + len(SEMI_SUFFIX)
+    for h in np.unique(at):
+        m = at == h
+        mat[m, h:h + body.shape[1]] = body[m]
+    keep = np.arange(mat.shape[1])[None, :] < (at + body.shape[1])[:, None]
+    return mat[keep].tobytes(), part
+
+
+def write_semi_corpus(path, n_records, seed):
+    """Write n_records semi-uniform records (READ_LEN bp reads, ids of
+    varying width) to `path` and return the oracle totals."""
+    n_blocks = -(-n_records // BLOCK_RECORDS)
+
+    def job(b):
+        start = b * BLOCK_RECORDS
+        return _semi_block(seed, b, start,
+                           min(BLOCK_RECORDS, n_records - start))
+
+    tot = None
+    with open(path, "wb") as f, \
+            cf.ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
+        for blob, part in ex.map(job, range(n_blocks)):
+            f.write(blob)
+            tot = part if tot is None else {k: tot[k] + v
+                                            for k, v in part.items()}
+    return tot
+
+
+# ----------------------------------------- edge cases of the ragged kernel
+
+def _ragged_records(rng, read_lens, id_lens, qual_lo=33, qual_hi=74):
+    """One FASTQ record (bytes) per (read length, id width): bases from
+    _SEQ_LUT (upper and lower case, N), ids from _ID_LUT, Phreds drawn in
+    [qual_lo, qual_hi]."""
+    out = []
+    for rl, il in zip(read_lens, id_lens):
+        out.append(b"@" + _ID_LUT[rng.integers(0, len(_ID_LUT), il)].tobytes()
+                   + b"\n" + _SEQ_LUT[rng.integers(0, 256, rl)].tobytes()
+                   + b"\n+\n" + rng.integers(qual_lo, qual_hi + 1, rl)
+                   .astype(np.uint8).tobytes() + b"\n")
+    return out
+
+
+def _fault(kind, rec):
+    """`rec` with the fault `kind` of _FAULTS."""
+    il = rec.index(b"\n") - 1
+    return _FAULTS[kind](rec, il, rec.index(b"\n", il + 2) - il - 2)
+
+
+def _edge_records(rng, width, n=600):
+    """Records of every edge length for `width` (0, 1, 15-17, width - 1 to
+    width + 1, 3 x width) and random lengths up to 3 x width, with ids of
+    1 to 200 bytes."""
+    edges = [0, 1, 15, 16, 17, width - 1, width, width + 1, 3 * width]
+    lens = np.concatenate([np.tile(edges, 10), rng.integers(
+        0, 3 * width + 1, n - 10 * len(edges))])
+    ids = rng.integers(1, 201, n)
+    ids[:4] = (1, 200, 1, 200)
+    return _ragged_records(rng, lens, ids)
+
+
+# each kind of invalid record: (record bytes, id width, read length) ->
+# the record with one fault (reads of 8 bases or more)
+_FAULTS = {
+    "no '@'": lambda r, il, rl: b"X" + r[1:],
+    "no '+'": lambda r, il, rl: r[:il + 3 + rl] + b"-" + r[il + 4 + rl:],
+    "high bit in the id": lambda r, il, rl: r[:1] + bytes([r[1] | 0x80])
+    + r[2:],
+    "high bit in the seq": lambda r, il, rl: r[:il + 9] + bytes(
+        [r[il + 9] | 0x80]) + r[il + 10:],
+    "high bit in the qual": lambda r, il, rl: r[:il + 9 + rl] + b"\xc1"
+    + r[il + 10 + rl:],
+    "high bit on the '+' line": lambda r, il, rl: r[:il + 4 + rl] + b"\xc1"
+    + r[il + 4 + rl:],
+    "quality below the range": lambda r, il, rl: r[:il + 9 + rl] + b" "
+    + r[il + 10 + rl:],
+    "quality above the range": lambda r, il, rl: r[:il + 9 + rl] + b"\x7f"
+    + r[il + 10 + rl:],
+    "qual shorter than seq": lambda r, il, rl: r[:-2] + b"\n",
+    "newline inside the seq": lambda r, il, rl: r[:il + 9] + b"\n"
+    + r[il + 10:],
+}
+# bs_ragged_qc keeps its per-position rows in shared memory up to a width
+# of about 6,800 and adds them straight into global memory above it: 8192
+# takes that branch
+RAGGED_EDGE_CASES = tuple(
+    ["w=%d %s" % (w, k) for w in (128, 256, 384, 1024, 8192)
+     for k in ("clean", "partial tail", "checks off")]
+    + ["invalid: " + k for k in _FAULTS]
+    + ["empty chunk", "no complete record", "tiny chunk",
+       "padding past n_valid", "view 5 bytes off alignment",
+       "view 1 byte off, odd length", "length off a multiple of 128",
+       "illumina_1.3 schema", "eq-mode, every value seen",
+       "eq-mode, a value missed"])
+
+
+def ragged_edge_case(label, seed):
+    """One edge case of the ragged kernel: (chunk bytes u8[n], the bytes to
+    put before it on the card (a view that far into its storage), n_valid,
+    ragged_qc's keyword arguments)."""
+    rng = np.random.default_rng([seed, 9, RAGGED_EDGE_CASES.index(label)])
+    kw = dict(width=QC_WIDTH, q_lo=33, q_hi=126, offset=33, check_ascii=True,
+              check_quality=True, hist_vals=(), len_vals=())
+    off = 0
+    if label.startswith("w="):
+        width = int(label[2:].split()[0])
+        kw["width"] = width
+        # fewer records at the widest window: reads of 3 x 8192 bases
+        recs = _edge_records(rng, width, 600 if width <= 1024 else 120)
+        if label.endswith("checks off"):
+            # reads of width - 1, width and width + 1 bases
+            recs[5] = _fault("high bit in the seq", recs[5])
+            recs[6] = _fault("quality above the range", recs[6])
+            recs[7] = _fault("high bit in the qual", recs[7])
+            kw.update(check_ascii=False, check_quality=False)
+        buf = b"".join(recs)
+        n_valid = len(buf) - (37 if label.endswith("partial tail") else 0)
+    elif label.startswith("invalid: "):
+        recs = _edge_records(rng, 256, 200)
+        recs[100] = _fault(label[9:], _ragged_records(rng, [255], [20])[0])
+        buf = b"".join(recs)
+        n_valid = len(buf)
+    elif label == "empty chunk":
+        buf, n_valid = bytes(256), 0
+    elif label == "no complete record":
+        buf = b"@r1 x\nACGTN\n+\nIIII"
+        n_valid = len(buf)
+    elif label == "tiny chunk":
+        buf = b"@a\nAC\n+\nII\n@b\n\n+\n\n@c\nG"
+        n_valid = len(buf)
+    elif label == "padding past n_valid":
+        recs = _edge_records(rng, 128, 100)
+        buf = b"".join(recs)
+        n_valid = len(buf)
+        buf += b"X\n\xff\n@\n\n" * 40
+    elif label.startswith("view") or label.startswith("length off"):
+        buf = b"".join(_edge_records(rng, 256, 300))
+        off = {"view 5": 5, "view 1": 1}.get(label[:6], 0)
+        if label.startswith("view 5"):
+            buf = buf[:len(buf) // 128 * 128]
+        n_valid = len(buf)
+    elif label == "illumina_1.3 schema":
+        buf = b"".join(_ragged_records(rng, rng.integers(0, 400, 300),
+                                       rng.integers(1, 60, 300), 64, 104))
+        kw.update(q_lo=64, q_hi=104, offset=64)
+        n_valid = len(buf)
+    else:  # the eq-mode cases: binned Phreds, lengths 40-80 but 60
+        lens = rng.integers(40, 81, 500)
+        recs = _ragged_records(rng, lens, rng.integers(1, 60, 500))
+        buf = bytearray(b"".join(recs))
+        nl = np.flatnonzero(np.frombuffer(bytes(buf), np.uint8) == 10)
+        for s, e in zip(nl[2::4], nl[3::4]):
+            q = np.frombuffer(bytes(buf[s + 1:e]), np.uint8).astype(int) - 33
+            buf[s + 1:e] = (_PHRED_LUT[q] + 33).astype(np.uint8).tobytes()
+        if label.endswith("missed"):
+            buf[int(nl[2]) + 1] = 33 + 9
+            kw["len_vals"] = tuple(v for v in range(40, 81) if v != 60)
+        else:
+            kw["len_vals"] = tuple(range(40, 81))
+        kw["hist_vals"] = tuple(int(v) for v in NOVASEQ_BINS)
+        buf = bytes(buf)
+        n_valid = len(buf)
+    return np.frombuffer(buf, np.uint8).copy(), off, n_valid, kw
 
 
 def write_mates(path1, path2, n, seed):
@@ -305,19 +551,23 @@ def write_mates(path1, path2, n, seed):
 
 def check_report(rep, oracle, width):
     """Every report panel against the oracle; raises on the first
-    mismatch."""
+    mismatch. A uniform block's oracle holds its READ_LEN columns; a
+    window oracle (_window_oracle) also holds the per-position read count,
+    the true bases and the length histogram."""
     n = oracle["reads"]
-    L = READ_LEN
+    L = oracle["base_pp"].shape[1]
     base_pp = np.zeros((5, width), np.int64)
     base_pp[:, :L] = oracle["base_pp"]
     count = np.zeros(width, np.int64)
-    count[:L] = n
+    count[:L] = oracle.get("count", n)
     qual_pp = np.zeros(width, np.int64)
     qual_pp[:L] = oracle["qual_pp"]
-    length_hist = np.zeros(512, np.int64)
-    length_hist[L] = n
+    length_hist = oracle.get("length_hist")
+    if length_hist is None:
+        length_hist = np.zeros(512, np.int64)
+        length_hist[READ_LEN] = n
     base_counts = base_pp.sum(1)
-    bases = n * L
+    bases = oracle.get("bases", n * READ_LEN)
     want = dict(
         reads=n, bases=bases, error_reads=0, base_counts=base_counts,
         per_pos_base_counts=base_pp, per_pos_count=count,
@@ -414,12 +664,24 @@ def phase_card():
 
 
 def phase_build():
-    from blazeseq_tpu_torch import _kernels
+    """Build the CUDA kernels and, beside them, the host libraries that
+    native/ compiles with g++ at first use (the record scanner with the id
+    normalizer, and the record extension), so that no timed path pays for
+    a compile."""
+    from blazeseq_tpu_torch import _kernels, native
 
     t0 = time.perf_counter()
-    _kernels.load()
-    log("build + load of %s: %.2f s" % (", ".join(_kernels.SOURCES),
-                                        time.perf_counter() - t0))
+    with cf.ThreadPoolExecutor(2) as ex:
+        host = [ex.submit(native.has_native), ex.submit(native.records_ext)]
+        _kernels.load()
+        cuda_s = time.perf_counter() - t0
+        scan_ok, records = (f.result() for f in host)
+    log("build + load of %s: %.2f s; host libraries: scanner %s, record "
+        "extension %s, both ready at %.2f s" % (
+            ", ".join(_kernels.SOURCES), cuda_s,
+            "built" if scan_ok else "missing (numpy fallback)",
+            "built" if records is not None else "missing",
+            time.perf_counter() - t0))
 
 
 def kernel_a_inputs(rng, n, L):
@@ -699,9 +961,9 @@ def _run_main(path, oracle, size, binned):
             "binned" if binned else "main", size, rep.reads, rep.bases, wall,
             size / wall / 1e9, model.tier_chunks, launched[0], launched[1],
             sorted(model._hist_his)))
-    if model.tier_chunks != {"uniform": chunks, "host": 0}:
-        raise AssertionError("expected %d uniform chunks and no host "
-                             "batch, got %s" % (chunks, model.tier_chunks))
+    if model.tier_chunks != dict(uniform=chunks, semi=0, ragged=0, host=0):
+        raise AssertionError("expected %d uniform chunks and no other "
+                             "route, got %s" % (chunks, model.tier_chunks))
     if launched[0] < model.tier_chunks["uniform"]:
         raise AssertionError("uniform_qc launched %d times for %d chunks"
                              % (launched[0], chunks))
@@ -1036,8 +1298,154 @@ def phase_kernel_scan(seed):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
 
 
-def phase_device_parse(seed, tmp):
-    """The device-parse API on a 1 GiB ragged FASTQ fed in 256 MiB chunks:
+def phase_kernel_ragged(seed, tmp):
+    """The ragged kernels (the scan kernel, bs_ragged_lines, bs_ragged_qc)
+    against their plain version on the card, every output leaf exact: the
+    cases of RAGGED_EDGE_CASES, then 256 MiB of the ragged corpus's
+    generator (its reads and tail against the generator's record starts;
+    the chunk kernel_bench.py times), which is timed with the scan
+    kernel's own time beside it."""
+    import torch
+
+    from blazeseq_tpu_torch.ops.ragged_qc import (_ragged_qc_raw_cuda,
+                                                  _ragged_qc_raw_torch,
+                                                  ragged_qc, ragged_qc_torch,
+                                                  raw_sizes)
+    from blazeseq_tpu_torch.ops.scan import structural_bitmaps
+
+    err = 0
+
+    def compare(c, n_valid, kw, label):
+        nonlocal err
+        got = ragged_qc(c, n_valid, **kw)
+        want = ragged_qc_torch(c, n_valid, **kw)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_diff(
+            (got.ok, got.fallback, got.tail_start, *got.stats),
+            (want.ok, want.fallback, want.tail_start, *want.stats),
+            "ragged kernel, " + label))
+        return want
+
+    for label in RAGGED_EDGE_CASES:
+        host, off, n_valid, kw = ragged_edge_case(label, seed)
+        dev = torch.zeros(len(host) + off, dtype=torch.uint8, device="cuda")
+        dev[off:].copy_(torch.from_numpy(host))
+        want = compare(dev[off:], n_valid, kw, label)
+        if bool(want.ok) == label.startswith("invalid"):
+            raise AssertionError("ragged kernel, %s: ok is %s"
+                                 % (label, bool(want.ok)))
+    path = os.path.join(tmp, "ragged_chunk.fastq")
+    _, starts = write_ragged_corpus(path, PARSE_CHUNK, seed + 23)
+    c = torch.from_numpy(np.fromfile(path, np.uint8)).cuda()
+    os.unlink(path)
+    n = c.numel()
+    kw = dict(width=QC_WIDTH, q_lo=33, q_hi=126, offset=33,
+              check_ascii=True, check_quality=True)
+    want = compare(c, n, kw, "256 MiB chunk")
+    n_rec = len(starts) - 1
+    if not (bool(want.ok) and int(want.stats.reads) == n_rec
+            and int(want.tail_start) == starts[n_rec] == n):
+        raise AssertionError("ragged kernel, 256 MiB chunk: ok %s, %d reads "
+                             "to %d, want %d to %d" % (
+                                 bool(want.ok), int(want.stats.reads),
+                                 int(want.tail_start), n_rec, starts[n_rec]))
+    ms = cuda_ms(lambda: _ragged_qc_raw_cuda(c, n, **kw), inner=3)
+    lanes = c[:n // 128 * 128]
+    scan_ms = cuda_ms(lambda: structural_bitmaps(lanes), inner=3)
+    plain_ms = cuda_ms(lambda: _ragged_qc_raw_torch(c, n, **kw), inner=1,
+                       trials=3)
+    # reads the chunk once and writes its raw sums; at least one
+    # operation per byte
+    bnd = bound(n + 4 * sum(raw_sizes(QC_WIDTH)), n)
+    log("ragged kernel == plain on %d cases; 256 MiB chunk (%d records, "
+        "%d bytes): kernel %.4f ms (%.1f GB/s; scan kernel %.4f ms of it), "
+        "plain %.1f ms, bound %.4f ms (%s), share %.1f%%" % (
+            len(RAGGED_EDGE_CASES) + 1, n_rec, n, ms, n / ms / 1e6,
+            scan_ms, plain_ms, bnd["bound_ms"], bnd["bound_by"],
+            100 * bnd["bound_ms"] / ms))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd), scan_ms
+
+
+def _device_and_host(path, oracle, size, label, tier):
+    """run_file_device on the card, checked against the oracle and routed
+    wholly through `tier`, then run_file (the host route) on the same file
+    in the same call, every panel equal."""
+    import torch
+
+    from blazeseq_tpu_torch import QCModel
+
+    # one plain read of the file first: its time shows whether the page
+    # cache holds the file (the metric is taken with a warm cache)
+    t0 = time.perf_counter()
+    buf = bytearray(64 << 20)
+    with open(path, "rb", buffering=0) as f:
+        while f.readinto(buf):
+            pass
+    read_s = time.perf_counter() - t0
+    model = QCModel(quality_schema="sanger", device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = model.run_file_device(path)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_report(rep, oracle, model.max_read_len)
+    tiers = model.tier_chunks
+    if tiers[tier] == 0 or any(v for k, v in tiers.items() if k != tier):
+        raise AssertionError("%s: expected %s chunks only, got %s"
+                             % (label, tier, tiers))
+    t0 = time.perf_counter()
+    host = QCModel(quality_schema="sanger", device="cuda").run_file(path)
+    torch.cuda.synchronize()
+    host_wall = time.perf_counter() - t0
+    _same_reports(rep, host, label + ", run_file_device vs run_file")
+    log("%s: %d bytes, %d reads, %d bases (a plain read of the file %.3f "
+        "s): run_file_device %.3f s, %.3f GB/s (tier_chunks %s); run_file "
+        "(host route) %.3f s, %.3f GB/s; reports equal" % (
+            label, size, rep.reads, rep.bases, read_s, wall,
+            size / wall / 1e9, tiers, host_wall, size / host_wall / 1e9))
+    return dict(bytes=size, read_s=read_s, wall_s=wall, gbps=size / wall / 1e9,
+                chunks=tiers[tier], host_wall_s=host_wall,
+                host_gbps=size / host_wall / 1e9)
+
+
+def phase_semi(seed, tmp):
+    """A 1 GiB semi-uniform FASTQ (150 bp reads, ids of varying width)
+    through run_file_device on the card: every chunk on the semi tier,
+    against the numpy oracle and run_file."""
+    path = os.path.join(tmp, "semi.fastq")
+    t0 = time.perf_counter()
+    oracle = write_semi_corpus(path, SEMI_BYTES // RS, seed + 29)
+    size = os.path.getsize(path)
+    log("semi corpus: %d records, %d bytes, written in %.1f s"
+        % (oracle["reads"], size, time.perf_counter() - t0))
+    try:
+        return _device_and_host(path, oracle, size, "run_file_device(semi)",
+                                "semi")
+    finally:
+        os.unlink(path)
+
+
+def phase_ragged(ragged):
+    """The 1 GiB ragged FASTQ through run_file_device on the card: every
+    chunk on the ragged tier, against the numpy oracle and run_file."""
+    path, oracle, _ = ragged
+    return _device_and_host(path, oracle["window"], oracle["bytes"],
+                            "run_file_device(ragged)", "ragged")
+
+
+def make_ragged_corpus(seed, tmp):
+    """The 1 GiB ragged corpus, written once for run_file_device(ragged)
+    and the device_parse path: (path, oracle, record starts)."""
+    path = os.path.join(tmp, "ragged.fastq")
+    t0 = time.perf_counter()
+    oracle, starts = write_ragged_corpus(path, RAGGED_BYTES, seed + 23)
+    log("ragged corpus: %d records, %d bytes, written in %.1f s"
+        % (oracle["reads"], oracle["bytes"], time.perf_counter() - t0))
+    return path, oracle, starts
+
+
+def phase_device_parse(seed, ragged):
+    """The device-parse API on the 1 GiB ragged FASTQ fed in 256 MiB chunks:
     raw_stream_qc, count_records_device(chunk[:tail_start]) == reads, and
     parse_fastq_device; the partial tail goes to the next chunk. Totals
     against the host parser, composition and Phred histogram against the
@@ -1050,12 +1458,8 @@ def phase_device_parse(seed, tmp):
     from blazeseq_tpu_torch.ops.scan import (count_records_device,
                                              parse_fastq_device)
 
-    path = os.path.join(tmp, "ragged.fastq")
-    t0 = time.perf_counter()
-    oracle, starts = write_ragged_corpus(path, RAGGED_BYTES, seed + 23)
+    path, oracle, starts = ragged
     n_total = oracle["reads"]
-    log("ragged corpus: %d records, %d bytes, written in %.1f s"
-        % (n_total, oracle["bytes"], time.perf_counter() - t0))
     data = np.memmap(path, np.uint8, "r")
     max_records = PARSE_CHUNK // RAGGED_MIN_RECORD + 1
     max_len = RAGGED_LEN[1]
@@ -1143,7 +1547,6 @@ def phase_device_parse(seed, tmp):
         raise AssertionError("device_parse: the planted '@' -> 'X' gave "
                              "codes %s" % np.flatnonzero(codes))
     del data
-    os.unlink(path)
     size = oracle["bytes"]
     log("device_parse: %d bytes, %d reads, %d bases in %d chunks: %.3f s "
         "wall, %.3f GB/s; totals == host parser, composition and Phred "
@@ -1345,12 +1748,14 @@ def main(argv=None):
     t_start = time.perf_counter()
     name, smi = phase_card()
     from blazeseq_tpu_torch.ops.nw import nw_scores
+    from blazeseq_tpu_torch.ops.ragged_qc import ragged_qc
     from blazeseq_tpu_torch.ops.scan import structural_bitmaps
     from blazeseq_tpu_torch.ops.uniform_qc import uniform_qc
     from blazeseq_tpu_torch.ops.validate import validate_decode
 
     kernels = dict(uniform_qc=uniform_qc, validate_decode=validate_decode,
-                   nw_scores=nw_scores, structural_bitmaps=structural_bitmaps)
+                   nw_scores=nw_scores, structural_bitmaps=structural_bitmaps,
+                   ragged_qc=ragged_qc)
     phase_build()
     torch.cuda.synchronize()
     ka = phase_kernel_a(args.seed)
@@ -1361,19 +1766,31 @@ def main(argv=None):
     torch.cuda.synchronize()
     kscan = phase_kernel_scan(args.seed)
     torch.cuda.synchronize()
-    # each path: (name, phase, the kernels it must launch)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     align = {}
+
+    def ragged():
+        # written just before its first path, after the uniform one
+        if "ragged" not in align:
+            align["ragged"] = make_ragged_corpus(args.seed, tmp)
+        return align["ragged"]
+
+    # each path: (name, phase, the kernels it must launch)
     paths = [
         ("run_file_device", lambda: phase_main_path(args.seed, tmp),
          ("uniform_qc",)),
+        ("run_file_device(semi)", lambda: phase_semi(args.seed, tmp),
+         ("uniform_qc",)),
+        ("run_file_device(ragged)", lambda: phase_ragged(ragged()),
+         ("ragged_qc", "structural_bitmaps")),
         ("fallback", lambda: phase_fallback(args.seed, tmp),
          ("validate_decode",)),
         ("NWAligner", phase_aligner, ("nw_scores",)),
         ("run_file(align_to)",
          lambda: phase_align_run_file(args.seed, *align["corpus"]),
          ("validate_decode", "nw_scores")),
-        ("device_parse", lambda: phase_device_parse(args.seed, tmp),
+        ("device_parse",
+         lambda: phase_device_parse(args.seed, ragged()),
          ("structural_bitmaps",)),
         ("cli", lambda: phase_cli(*align["corpus"], tmp),
          ("uniform_qc", "validate_decode")),
@@ -1381,6 +1798,8 @@ def main(argv=None):
     e2e = {}
     launches = dict.fromkeys(kernels, 0)
     try:
+        kragged, ragged_scan_ms = phase_kernel_ragged(args.seed, tmp)
+        torch.cuda.synchronize()
         align["corpus"] = make_align_corpus(args.seed, tmp)
         for path_name, fn, needed in paths:
             e2e[path_name], got = run_path(path_name, fn, kernels)
@@ -1388,17 +1807,26 @@ def main(argv=None):
                 if got[k] == 0:
                     raise AssertionError("kernel %s was never launched on "
                                          "the %s path" % (k, path_name))
+            if (path_name == "run_file_device(ragged)"
+                    and got["ragged_qc"] != e2e[path_name]["chunks"]):
+                # the ragged tier takes full-bin histograms: one pass
+                raise AssertionError(
+                    "%d ragged_qc launches for %d ragged chunks"
+                    % (got["ragged_qc"], e2e[path_name]["chunks"]))
             for k, v in got.items():
                 launches[k] += v
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log("launches on the paths, summed:", launches)
     log("NW kernel timings:", json.dumps(nw_times))
+    log("ragged kernel: the scan kernel's share %.4f of %.4f ms"
+        % (ragged_scan_ms, kragged["ms"]))
     log("end to end:", json.dumps(e2e))
     log("total %.1f s" % (time.perf_counter() - t_start))
-    # no single PyTorch call computes any of the four functions, so none
+    # no single PyTorch call computes any of the five functions, so none
     # has a library time; kernel A has one record per shape of
-    # KERNEL_A_SHAPES
+    # KERNEL_A_SHAPES. The ragged kernel replaces XLA code (no Pallas
+    # kernel): its `replaces` names the reference's ragged_qc
     print(json.dumps({"kernels": [
         dict(name="uniform_qc", route="cuda", source=KERNEL_B_SOURCE,
              replaces="blazeseq_tpu/ops/fused_qc.py:205",
@@ -1415,6 +1843,9 @@ def main(argv=None):
              replaces="blazeseq_tpu/ops/scan.py:78",
              launches=launches["structural_bitmaps"], library_ms=None,
              **kscan),
+        dict(name="ragged_qc", route="cuda", source=KERNEL_RAGGED_SOURCE,
+             replaces="blazeseq_tpu/ops/ragged_qc.py:182",
+             launches=launches["ragged_qc"], library_ms=None, **kragged),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Device times of the port's four kernels at the main paths' shapes, for
-one source tree or several in turn.
+"""Device times of the port's kernels at the main paths' shapes, for one
+source tree or several in turn.
 
     python3 kernel_bench.py [--tree DIR ...] [--seed N]
 
@@ -18,24 +18,31 @@ compare two commits on one card). Shapes:
   `run_file`) and 32,768 x 1,024 (reads up to 1 kb, bound by device
   memory), inputs from `chip_smoke.kernel_a_inputs`;
 * the scan kernel (`structural_bitmaps`): 256 MiB of the smoke's records
-  and 64 MiB of bytes drawn from {'\\n', '@', '+', 'A'}.
+  and 64 MiB of bytes drawn from {'\\n', '@', '+', 'A'};
+* the ragged kernels (`ragged_qc`: the scan kernel, a cumsum of its row
+  counts, bs_ragged_lines and bs_ragged_qc, through the raw launch
+  `_ragged_qc_raw_cuda`): 256 MiB of chip_smoke.py's ragged corpus at a
+  256-column window, with the scan kernel's own time beside it; a tree
+  without ops/ragged_qc.py skips it.
 
 Each kernel is checked equal to its plain version first. `device_ms`
 queues the launches behind a sleeping kernel, so it is the card's time
 alone; `event_ms` times back-to-back calls with CUDA events, host launch
 cost included when the host is the slower side (both medians of 5 trials);
-`host_ms` is their difference. Kernel A and the scan kernel also carry
-`bound_ms` (chip_smoke.py's bound). Prints one JSON line per tree, with the
-card's name and power limit. Needs a CUDA card.
+`host_ms` is their difference. Kernel A, the scan kernel and the ragged
+kernels also carry `bound_ms` (chip_smoke.py's bound). Prints one JSON
+line per tree, with the card's name and power limit. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
 import sys
+import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -154,7 +161,36 @@ def _one_tree(tree, seed):
                           bound_ms=cs.bound(cs.nbytes(c, *got),
                                             3 * c.numel() // 4)["bound_ms"])
         del c, got
+    if importlib.util.find_spec("blazeseq_tpu_torch.ops.ragged_qc"):
+        out["ragged_qc"] = _ragged(cs, seed)
     return out
+
+
+def _ragged(cs, seed):
+    import numpy as np
+    import torch
+
+    from blazeseq_tpu_torch.ops import scan
+
+    # the module (the package's `ragged_qc` attribute is the function)
+    rqc = importlib.import_module("blazeseq_tpu_torch.ops.ragged_qc")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ragged.fastq")
+        cs.write_ragged_corpus(path, cs.PARSE_CHUNK, seed + 23)
+        c = torch.from_numpy(np.fromfile(path, np.uint8)).cuda()
+    n = c.numel()
+    kw = dict(width=cs.QC_WIDTH, q_lo=33, q_hi=126, offset=33,
+              check_ascii=True, check_quality=True)
+    _same((rqc._ragged_qc_raw_cuda(c, n, **kw),),
+          (rqc._ragged_qc_raw_torch(c, n, **kw),), "ragged_qc")
+    t = _times(lambda: rqc._ragged_qc_raw_cuda(c, n, **kw), inner=5)
+    lane = c[:n // 128 * 128]
+    return dict(t, bytes=n,
+                scan_device_ms=device_ms(lambda: scan.structural_bitmaps(lane),
+                                         inner=5),
+                bound_ms=cs.bound(n + 4 * sum(rqc.raw_sizes(cs.QC_WIDTH)),
+                                  n)["bound_ms"])
 
 
 def main(argv=None):

@@ -592,7 +592,7 @@ RENAMED = {"validate_decode_pallas": "validate_decode",
            "sw_affine_scores_xla": "sw_affine_scores",
            "nw_semiglobal_scores_xla": "nw_semiglobal_scores",
            "nw_semiglobal_affine_scores_xla": "nw_semiglobal_affine_scores"}
-NOT_PORTED = {"RaggedQC", "ragged_qc", "use_interpret"}
+NOT_PORTED = {"use_interpret"}
 
 
 def test_ops_package_exports_the_reference_names():

@@ -346,3 +346,105 @@ def test_native_scanner_is_the_ports_own_build():
     assert a == b
     assert np.array_equal(port_native.find_newlines(window),
                           ref_native.find_newlines(window))
+
+
+SHARD_FILES = [f for f in FASTQ_FILES
+               if not f.endswith((".gz", ".bgz", ".fqi"))]
+
+
+@pytest.mark.parametrize("fname", SHARD_FILES)
+def test_record_boundaries_match(fname):
+    """The port's copy of parallel/sharding.py finds the reference's record
+    boundary at every offset of a parser corpus file, with the default and
+    a short probe window."""
+    from blazeseq_tpu.parallel import sharding as ref_sharding
+    from blazeseq_tpu_torch.parallel import sharding as port_sharding
+
+    path = os.path.join(FASTQ_DIR, fname)
+    data = np.fromfile(path, np.uint8)
+    step = max(1, len(data) // 300)
+    for off in list(range(-1, len(data) + 2, step)) + [len(data) - 1]:
+        for probe in (1 << 20, 64):
+            assert (port_sharding.find_record_boundary_bytes(data, off, probe)
+                    == ref_sharding.find_record_boundary_bytes(data, off,
+                                                               probe)), off
+        assert (port_sharding.find_record_boundary(path, off)
+                == ref_sharding.find_record_boundary(path, off))
+
+
+@pytest.mark.parametrize("with_fqi", [False, True])
+def test_shard_file_matches(with_fqi, tmp_path):
+    from blazeseq_tpu.parallel import sharding as ref_sharding
+    from blazeseq_tpu_torch.parallel import sharding as port_sharding
+
+    path = tmp_path / "r.fastq"
+    path.write_bytes(_corpus(900, 20, 140, seed=4))
+    if with_fqi:
+        port_index.write_fqi(port_index.build_fqi(str(path), stride=7),
+                             str(path) + ".fqi")
+    for n in (1, 2, 3, 7, 64):
+        got = port_sharding.shard_file(str(path), n)
+        assert got == ref_sharding.shard_file(str(path), n)
+        start, end = got[n // 2]
+        reader = port_sharding.open_shard(str(path), n, n // 2)
+        buf = bytearray(end - start + 1)
+        k = reader.readinto(memoryview(buf))
+        reader.close()
+        assert bytes(buf[:k]) == path.read_bytes()[start:end]
+
+
+def _semi_corpus(n, L, seed):
+    return bytes(ref.generate_variable_id_fastq_buffer(
+        n, L, L, 2, 40, "sanger", seed=seed))
+
+
+@pytest.mark.parametrize("case", ["var_ids", "length_change", "wide_id",
+                                  "partial_tail", "small_out"])
+@pytest.mark.parametrize("impl", ["native", "numpy"])
+def test_normalize_semi_uniform_matches(case, impl):
+    """The port's id normalizer (its native build and its numpy twin)
+    against the reference's, on the corpora of
+    tests/test_normalize_semi_uniform.py."""
+    from blazeseq_tpu import native as ref_native
+    from blazeseq_tpu_torch import native as port_native
+
+    v = _semi_corpus(500, 100, 1)
+    idw, L, cap = 64, 100, 600
+    if case == "length_change":
+        v = _semi_corpus(50, 100, 1) + _semi_corpus(50, 60, 2)
+    elif case == "wide_id":
+        big = b"@" + b"X" * 120 + b"\n" + b"A" * 100 + b"\n+\nI" + b"I" * 99
+        v = v[:v.index(b"\n@", len(v) // 2) + 1] + big + b"\n" + v
+    elif case == "partial_tail":
+        v = v[:len(v) - 30]
+    elif case == "small_out":
+        cap = 17
+    buf = np.frombuffer(v, np.uint8)
+    rs = idw + 2 * L + 6
+    outs = []
+    for mod in (port_native, ref_native):
+        fn = (mod.normalize_semi_uniform if impl == "native"
+              else mod._normalize_semi_uniform_np)
+        out = np.zeros(cap * rs, np.uint8)
+        res = [fn(buf, 0, out, idw, L)]
+        if res[0][0]:  # and from where the first call stopped
+            res.append(fn(buf, res[0][1], out[res[0][0] * rs:], idw, L))
+        outs.append((res, out.tobytes()))
+    assert outs[0] == outs[1]
+    assert outs[0][0][0][0] > 0
+
+
+def test_peek_semi_uniform_matches():
+    from blazeseq_tpu.models.qc import QCModel as RefQCModel
+    from blazeseq_tpu_torch.models.qc import QCModel as PortQCModel
+
+    heads = [_semi_corpus(100, 100, 1), _semi_corpus(50, 60, 2),
+             bytes(ref.generate_synthetic_fastq_buffer(50, 80, 80, 2, 40,
+                                                       "sanger")),
+             _corpus(50, 60, 110, seed=3), b"@r\nAC\n+x\nII\n", b"@r\n\n+\n\n",
+             b"@r\nACGT\n+\nIIII", b""]
+    for h in heads:
+        a = np.frombuffer(h, np.uint8)
+        for kw in ({}, dict(head_bytes=300, margin=0)):
+            assert (PortQCModel._peek_semi_uniform(a, **kw)
+                    == RefQCModel._peek_semi_uniform(a, **kw)), (h[:40], kw)

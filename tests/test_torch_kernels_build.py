@@ -79,17 +79,20 @@ def test_sources_compile_together_then_link(fake_nvcc):
 
 def test_every_kernel_source_is_built_and_bound():
     assert _kernels.SOURCES == ("validate.cu", "uniform_qc.cu", "nw.cu",
-                                "scan.cu")
+                                "scan.cu", "ragged_qc.cu")
     for name in _kernels.SOURCES:
         assert os.path.exists(os.path.join(_kernels.CSRC, name))
-    # one C entry point per kernel source, each with its argument types
-    entries = {"validate.cu": "bs_validate_decode",
-               "uniform_qc.cu": "bs_uniform_qc", "nw.cu": "bs_nw_scores",
-               "scan.cu": "bs_structural_bitmaps"}
-    for source, entry in entries.items():
-        assert entry in _kernels._SIGNATURES
+    # the C entry points of each kernel source, each with its argument types
+    entries = {"validate.cu": ("bs_validate_decode",),
+               "uniform_qc.cu": ("bs_uniform_qc",), "nw.cu": ("bs_nw_scores",),
+               "scan.cu": ("bs_structural_bitmaps",),
+               "ragged_qc.cu": ("bs_ragged_lines", "bs_ragged_qc")}
+    for source, names in entries.items():
         with open(os.path.join(_kernels.CSRC, source)) as f:
-            assert 'extern "C" int %s(' % entry in f.read()
+            text = f.read()
+        for entry in names:
+            assert entry in _kernels._SIGNATURES
+            assert 'extern "C" int %s(' % entry in text
 
 
 def test_failed_compile_raises_and_leaves_no_library(fake_nvcc,
