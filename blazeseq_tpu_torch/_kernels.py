@@ -56,11 +56,11 @@ _SIGNATURES = {
     "bs_nw_smem_bytes": (_I, _I),
     # chunk, nl, at, plus, counts, rows, max_blocks, stream
     "bs_structural_bitmaps": (_P, _P, _P, _P, _P, _LL, _I, _P),
-    # chunk, nl_words, excl, rows, n_valid, positions, n_lines, stream
-    "bs_ragged_lines": (_P, _P, _P, _LL, _LL, _P, _P, _P),
-    # chunk, positions, n_lines, n_valid, width, q_lo, q_hi, offset,
-    # check_ascii, check_quality, out, sm_count, stream
-    "bs_ragged_qc": (_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P, _I, _P),
+    # chunk, status, n_valid, tile, width, q_lo, q_hi, offset, check_ascii,
+    # check_quality, out, sm_count, stream
+    "bs_ragged_qc": (_P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P),
+    # width
+    "bs_ragged_qc_blocks_per_sm": (_I,),
 }
 
 

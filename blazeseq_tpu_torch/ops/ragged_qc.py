@@ -11,10 +11,11 @@ panels, the Phred histogram and the per-read GC% and mean-quality bins
 cover each line's first `width` bytes.
 
 The pass has two implementations with the same raw outputs: the
-hand-written kernels in csrc/ragged_qc.cu (CUDA tensors; the newline
-positions come from the structural-bitmap kernel of ops/scan.py) and the
-plain torch version `_ragged_qc_raw_torch` (CPU tensors, and the comparison
-on the card). Both build full-bin histograms (64 Phred bins of
+hand-written kernel in csrc/ragged_qc.cu (CUDA tensors: one pass over
+tiles of TILE_BYTES, each staged in shared memory, its newlines' phase
+from a look-back over the tiles before) and the plain torch
+version `_ragged_qc_raw_torch` (CPU tensors, and the comparison on the
+card). Both build full-bin histograms (64 Phred bins of
 clip(q - offset, 0, 63), 512 length bins) and a histogram of in-window seq
 lengths from which the per-position read count follows; one torch epilogue
 turns the raw outputs into `QCStats`, folding the eq-mode histograms
@@ -24,10 +25,10 @@ The reference's TPU design (MXU cross-correlations over a [tiles, K] view,
 rank-compacted slots, "no gather, no scatter, no sort") and its knobs
 `slot_cap` and `_ablate` are not ported: the port has no slot structure and
 no lag correlation. `fallback` stays for API parity and is always False
-here: the newline positions have room for `n_valid` entries, so every chunk
-fits. Chunks the reference sends to `fallback` (slot overflow, records
-shorter than min(longest line, width)) stay on the device in the port, and
-their stats equal the host engine's.
+here: the kernel takes records of any length and tiles of any density, so
+every chunk fits. Chunks the reference sends to `fallback` (slot overflow,
+records shorter than min(longest line, width)) stay on the device in the
+port, and their stats equal the host engine's.
 """
 
 from __future__ import annotations
@@ -40,9 +41,20 @@ from .. import _kernels
 from .common import AT, NEWLINE, PLUS
 from .stats import GC_BINS, LEN_BINS, MAX_PHRED, QCStats
 
-_LANE = 128
 # offsets are int32 on the card
 _MAX_BYTES = (1 << 31) - 1
+# bytes per tile of the kernel (csrc/ragged_qc.cu's kTile, which refuses
+# another): a warp stages each tile with a halo in shared memory, and each
+# tile has one int32 status word for the look-back
+TILE_BYTES = 2048
+
+
+def tile_count(address: int, n_valid: int) -> int:
+    """Tiles of the kernel over a chunk at `address` with `n_valid` bytes:
+    tiles start at the address rounded down to 16 bytes."""
+    if n_valid <= 0:
+        return 0
+    return -(-(address % 16 + n_valid) // TILE_BYTES)
 
 
 class RaggedQC(NamedTuple):
@@ -75,7 +87,7 @@ def _bincount(idx, n):
 
 def _ragged_qc_raw_torch(x, n_valid, *, width, q_lo, q_hi, offset,
                          check_ascii, check_quality):
-    """Plain torch version of the kernels' raw outputs: one int32 tensor of
+    """Plain torch version of the kernel's raw outputs: one int32 tensor of
     sum(raw_sizes(width)) entries (see raw_sizes)."""
     dev = x.device
     i64 = torch.int64
@@ -143,49 +155,34 @@ def _ragged_qc_raw_torch(x, n_valid, *, width, q_lo, q_hi, offset,
 
 def _ragged_qc_raw_cuda(x, n_valid, *, width, q_lo, q_hi, offset,
                         check_ascii, check_quality):
-    """The kernels' raw outputs (see _ragged_qc_raw_torch): the
-    structural-bitmap kernel over the chunk's 128-byte rows up to n_valid,
-    an int32 cumsum of its per-row newline counts, then bs_ragged_lines
-    (the newline positions below n_valid, in order) and bs_ragged_qc (one
-    warp per record). No host sync."""
+    """The kernel's raw outputs (see _ragged_qc_raw_torch), in one pass
+    and without a host sync: bs_ragged_qc takes tiles of TILE_BYTES in
+    order (tiles start at the chunk's address rounded down to 16 bytes), a
+    warp stages each with a halo in shared memory, counts its newlines,
+    learns their phase from the tiles before by a look-back over one
+    status word per tile, and parses the records that start in it.
+    Scratch: one int32 per tile and a counter (0.5 MiB for a 256 MiB
+    chunk), zeroed with the raw outputs in one fill."""
     if not x.is_cuda:
         raise ValueError("ragged_qc: chunk is not on a CUDA device (got %s)"
                          % x.device)
     if not x.is_contiguous():
         raise ValueError("ragged_qc: chunk must be contiguous")
-    from .scan import structural_bitmaps
-
     lib = _kernels.load()
     dev = x.device
-    # whole 128-byte rows up to n_valid; bytes past the last whole row of
-    # the tensor (a length off a multiple of 128) are read by the lines
-    # kernel itself
-    rows = min(x.numel() // _LANE, -(-n_valid // _LANE))
-    if rows:
-        nl_words, _, _, counts = structural_bitmaps(x[:rows * _LANE])
-        counts = counts.view(-1)
-        excl = torch.cumsum(counts, 0, dtype=torch.int32) - counts
-        nl_ptr, excl_ptr = nl_words.data_ptr(), excl.data_ptr()
-    else:
-        nl_ptr = excl_ptr = None
-    # [0]: the count of newlines below n_valid; then the raw outputs, which
-    # the kernel adds into
-    out = torch.zeros(1 + sum(raw_sizes(width)), dtype=torch.int32,
-                      device=dev)
-    positions = torch.empty(max(n_valid, 1), dtype=torch.int32, device=dev)
+    n_raw = sum(raw_sizes(width))
+    # the raw outputs, which the kernel adds into, then the status words
+    buf = torch.zeros(n_raw + tile_count(x.data_ptr(), n_valid) + 1,
+                      dtype=torch.int32, device=dev)
     with _kernels.on_device(dev):
-        err = lib.bs_ragged_lines(x.data_ptr(), nl_ptr, excl_ptr, rows,
-                                  n_valid, positions.data_ptr(),
-                                  out.data_ptr(), _kernels.stream_ptr(dev))
-        _kernels.check(err, "bs_ragged_lines")
         err = lib.bs_ragged_qc(
-            x.data_ptr(), positions.data_ptr(), out.data_ptr(), n_valid,
+            x.data_ptr(), buf[n_raw:].data_ptr(), n_valid, TILE_BYTES,
             width, q_lo, q_hi, offset, int(bool(check_ascii)),
-            int(bool(check_quality)), out[1:].data_ptr(),
+            int(bool(check_quality)), buf.data_ptr(),
             _kernels.sm_count(dev.index), _kernels.stream_ptr(dev))
     _kernels.check(err, "bs_ragged_qc")
     ragged_qc.launches += 1
-    return out[1:]
+    return buf[:n_raw]
 
 
 def _assemble(flat, width, hist_vals, len_vals) -> RaggedQC:
@@ -308,7 +305,7 @@ def ragged_qc(chunk, n_valid, *, width: int, q_lo: int, q_hi: int,
     bin at max+1. Both are folded from the full bins after the pass, so
     they save no work here; QCModel's ragged tier passes neither.
 
-    CPU tensors run the plain torch version; CUDA tensors run the kernels
+    CPU tensors run the plain torch version; CUDA tensors run the kernel
     (counted in `ragged_qc.launches`) or raise."""
     if chunk.is_cuda:
         raw_fn = _ragged_qc_raw_cuda

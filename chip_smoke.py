@@ -438,9 +438,65 @@ _FAULTS = {
     "newline inside the seq": lambda r, il, rl: r[:il + 9] + b"\n"
     + r[il + 10:],
 }
+
+
+def _record_ending_at(rng, s, k, target):
+    """A record starting at offset s whose newline k (0: id, 1: seq,
+    2: '+', 3: qual line) lies at offset `target` (target - s >= 40)."""
+    span = target - s
+    if k == 0:
+        il, rl = span - 1, int(rng.integers(0, 50))
+    elif k == 1:
+        il = int(rng.integers(1, 10))
+        rl = span - 2 - il
+    elif k == 2:
+        il = int(rng.integers(1, 10))
+        rl = span - 4 - il
+    else:
+        il = 1 + (span - 6) % 2
+        rl = (span - 5 - il) // 2
+    return _ragged_records(rng, [rl], [il])[0]
+
+
+def _tile_records(rng, tile, plan, lens=(0, 300), ids=(1, 60)):
+    """Records over len(plan) + 1 tiles of `tile` bytes: plan[j] = (k, d)
+    puts newline k of the record across boundary j + 1 at d bytes past
+    the boundary's first byte (d = -1: on the last byte before it)."""
+    out, s = [], 0
+    for j, (k, d) in enumerate(plan):
+        target = (j + 1) * tile + d
+        while True:
+            rec = _ragged_records(rng, [int(rng.integers(*lens))],
+                                  [int(rng.integers(*ids))])[0]
+            if s + len(rec) + 48 > target:
+                break
+            out.append(rec)
+            s += len(rec)
+        rec = _record_ending_at(rng, s, k, target)
+        out.append(rec)
+        s += len(rec)
+    while s < (len(plan) + 1) * tile:
+        rec = _ragged_records(rng, [int(rng.integers(*lens))],
+                              [int(rng.integers(*ids))])[0]
+        out.append(rec)
+        s += len(rec)
+    return out
+
+
 # bs_ragged_qc keeps its per-position rows in shared memory up to a width
-# of about 6,800 and adds them straight into global memory above it: 8192
-# takes that branch
+# of about 7,600 and adds them straight into global memory above it: 8192
+# takes that branch. The tile cases aim at the kernel's tiles of
+# ops/ragged_qc.py's TILE_BYTES (the views start 16-byte aligned there):
+# boundaries inside each of the four lines of a record, boundaries just
+# past a newline of each phase (phase 3: a record starts on the tile's
+# first byte), a record past three tiles and the window's halo, a tile
+# with no newline, a chunk shorter than a tile, and tiles so dense in
+# records that their newlines take several rounds of the kernel's list.
+RAGGED_TILE_CASES = (
+    ["tile boundary inside line %d" % k for k in range(4)]
+    + ["tile boundaries just past a newline of each phase",
+       "a record longer than three tiles", "a tile with no newline",
+       "chunk shorter than one tile", "dense tiles of 0-2 base reads"])
 RAGGED_EDGE_CASES = tuple(
     ["w=%d %s" % (w, k) for w in (128, 256, 384, 1024, 8192)
      for k in ("clean", "partial tail", "checks off")]
@@ -449,7 +505,38 @@ RAGGED_EDGE_CASES = tuple(
        "padding past n_valid", "view 5 bytes off alignment",
        "view 1 byte off, odd length", "length off a multiple of 128",
        "illumina_1.3 schema", "eq-mode, every value seen",
-       "eq-mode, a value missed"])
+       "eq-mode, a value missed"]
+    + RAGGED_TILE_CASES)
+
+
+def _tile_case(label, rng):
+    """The records of one of RAGGED_TILE_CASES, and the bytes to put
+    before them on the card."""
+    from blazeseq_tpu_torch.ops.ragged_qc import TILE_BYTES as tile
+
+    if label.startswith("tile boundary inside line"):
+        # newline k lands 0-7 bytes past the boundary: the boundary falls
+        # inside line k (on the '+' line, between '+' and its newline)
+        k = int(label[-1])
+        return _tile_records(rng, tile, [(k, 0 if k == 2 else int(
+            rng.integers(0, 8))) for _ in range(2)]), 0
+    if label.startswith("tile boundaries just past"):
+        return _tile_records(rng, tile, [(k, -1) for k in range(4)]), 0
+    if label == "a record longer than three tiles":
+        recs = _tile_records(rng, tile, [])
+        return (recs[:10] + _ragged_records(rng, [100_000], [30])
+                + recs[10:]), 0
+    if label == "a tile with no newline":
+        recs = _tile_records(rng, tile, [])
+        return recs[:5] + _ragged_records(rng, [40], [2 * tile]) + recs, 0
+    if label == "chunk shorter than one tile":
+        # at most 4 x 446 bytes, under one tile with the view's offset
+        recs = _ragged_records(rng, rng.integers(0, 201, 4),
+                               rng.integers(1, 41, 4))
+        return recs, 3
+    # 0-2 base reads with 1-byte ids: 7-11 bytes a record
+    return _ragged_records(rng, rng.integers(0, 3, 3 * tile // 9),
+                           np.ones(3 * tile // 9, np.int64)), 0
 
 
 def ragged_edge_case(label, seed):
@@ -497,6 +584,12 @@ def ragged_edge_case(label, seed):
         if label.startswith("view 5"):
             buf = buf[:len(buf) // 128 * 128]
         n_valid = len(buf)
+    elif label in RAGGED_TILE_CASES:
+        recs, off = _tile_case(label, rng)
+        buf = b"".join(recs)
+        n_valid = len(buf)
+        if label == "chunk shorter than one tile":
+            n_valid -= 11  # a partial last record
     elif label == "illumina_1.3 schema":
         buf = b"".join(_ragged_records(rng, rng.integers(0, 400, 300),
                                        rng.integers(1, 60, 300), 64, 104))
@@ -1298,20 +1391,47 @@ def phase_kernel_scan(seed):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
 
 
-def phase_kernel_ragged(seed, tmp):
-    """The ragged kernels (the scan kernel, bs_ragged_lines, bs_ragged_qc)
-    against their plain version on the card, every output leaf exact: the
-    cases of RAGGED_EDGE_CASES, then 256 MiB of the ragged corpus's
-    generator (its reads and tail against the generator's record starts;
-    the chunk kernel_bench.py times), which is timed with the scan
-    kernel's own time beside it."""
+def ragged_fill(c, n, width):
+    """The zero fill that each ragged_qc call on chunk c (n valid bytes)
+    makes before its kernel (the raw outputs, one status word per tile and
+    the tile counter), as a call of its own, for its device time."""
+    import importlib
+
     import torch
 
+    rqc = importlib.import_module("blazeseq_tpu_torch.ops.ragged_qc")
+    size = sum(rqc.raw_sizes(width)) + rqc.tile_count(c.data_ptr(), n) + 1
+    return lambda: torch.zeros(size, dtype=torch.int32, device=c.device)
+
+
+def ragged_scratch_bytes(raw_fn, c, n, **kw):
+    """Device memory one raw_fn(c, n, **kw) call allocates beyond what was
+    allocated before it (the chunk among it): its peak, outputs included."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    raw_fn(c, n, **kw)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - before
+
+
+def phase_kernel_ragged(seed, tmp):
+    """The ragged kernel (bs_ragged_qc, one pass after a zero fill) against
+    its plain version on the card, every output leaf exact: the cases of
+    RAGGED_EDGE_CASES, then 256 MiB of the ragged corpus's generator (its
+    reads and tail against the generator's record starts; the chunk
+    kernel_bench.py times), which is timed with the fill's own time, the
+    call's device-memory scratch and the kernel's blocks per SM beside
+    it."""
+    import torch
+
+    from blazeseq_tpu_torch import _kernels
     from blazeseq_tpu_torch.ops.ragged_qc import (_ragged_qc_raw_cuda,
                                                   _ragged_qc_raw_torch,
                                                   ragged_qc, ragged_qc_torch,
                                                   raw_sizes)
-    from blazeseq_tpu_torch.ops.scan import structural_bitmaps
 
     err = 0
 
@@ -1349,21 +1469,26 @@ def phase_kernel_ragged(seed, tmp):
                              "to %d, want %d to %d" % (
                                  bool(want.ok), int(want.stats.reads),
                                  int(want.tail_start), n_rec, starts[n_rec]))
+    scratch = ragged_scratch_bytes(_ragged_qc_raw_cuda, c, n, **kw)
     ms = cuda_ms(lambda: _ragged_qc_raw_cuda(c, n, **kw), inner=3)
-    lanes = c[:n // 128 * 128]
-    scan_ms = cuda_ms(lambda: structural_bitmaps(lanes), inner=3)
+    notes = dict(fill_ms=cuda_ms(ragged_fill(c, n, QC_WIDTH), inner=3),
+                 scratch_bytes=scratch,
+                 blocks_per_sm=_kernels.load().bs_ragged_qc_blocks_per_sm(
+                     QC_WIDTH))
     plain_ms = cuda_ms(lambda: _ragged_qc_raw_torch(c, n, **kw), inner=1,
                        trials=3)
     # reads the chunk once and writes its raw sums; at least one
     # operation per byte
     bnd = bound(n + 4 * sum(raw_sizes(QC_WIDTH)), n)
     log("ragged kernel == plain on %d cases; 256 MiB chunk (%d records, "
-        "%d bytes): kernel %.4f ms (%.1f GB/s; scan kernel %.4f ms of it), "
-        "plain %.1f ms, bound %.4f ms (%s), share %.1f%%" % (
+        "%d bytes): kernel %.4f ms (%.1f GB/s; its zero fill %.4f ms, %d "
+        "blocks an SM), scratch %d bytes beyond the chunk, plain %.1f ms, "
+        "bound %.4f ms (%s), share %.1f%%" % (
             len(RAGGED_EDGE_CASES) + 1, n_rec, n, ms, n / ms / 1e6,
-            scan_ms, plain_ms, bnd["bound_ms"], bnd["bound_by"],
+            notes["fill_ms"], notes["blocks_per_sm"],
+            scratch, plain_ms, bnd["bound_ms"], bnd["bound_by"],
             100 * bnd["bound_ms"] / ms))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd), scan_ms
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd), notes
 
 
 def _device_and_host(path, oracle, size, label, tier):
@@ -1782,7 +1907,7 @@ def main(argv=None):
         ("run_file_device(semi)", lambda: phase_semi(args.seed, tmp),
          ("uniform_qc",)),
         ("run_file_device(ragged)", lambda: phase_ragged(ragged()),
-         ("ragged_qc", "structural_bitmaps")),
+         ("ragged_qc",)),
         ("fallback", lambda: phase_fallback(args.seed, tmp),
          ("validate_decode",)),
         ("NWAligner", phase_aligner, ("nw_scores",)),
@@ -1798,7 +1923,7 @@ def main(argv=None):
     e2e = {}
     launches = dict.fromkeys(kernels, 0)
     try:
-        kragged, ragged_scan_ms = phase_kernel_ragged(args.seed, tmp)
+        kragged, kragged_notes = phase_kernel_ragged(args.seed, tmp)
         torch.cuda.synchronize()
         align["corpus"] = make_align_corpus(args.seed, tmp)
         for path_name, fn, needed in paths:
@@ -1819,8 +1944,8 @@ def main(argv=None):
         shutil.rmtree(tmp, ignore_errors=True)
     log("launches on the paths, summed:", launches)
     log("NW kernel timings:", json.dumps(nw_times))
-    log("ragged kernel: the scan kernel's share %.4f of %.4f ms"
-        % (ragged_scan_ms, kragged["ms"]))
+    log("ragged kernels: %.4f ms a call;" % kragged["ms"],
+        json.dumps(kragged_notes))
     log("end to end:", json.dumps(e2e))
     log("total %.1f s" % (time.perf_counter() - t_start))
     # no single PyTorch call computes any of the five functions, so none

@@ -1,7 +1,7 @@
 """Device times of the port's kernels at the main paths' shapes, for one
 source tree or several in turn.
 
-    python3 kernel_bench.py [--tree DIR ...] [--seed N]
+    python3 kernel_bench.py [--tree DIR ...] [--seed N] [--ragged-path]
 
 Each DIR (default: this script's directory) holds a `blazeseq_tpu_torch`
 package; its kernels are built from its own sources and timed in a fresh
@@ -19,11 +19,18 @@ compare two commits on one card). Shapes:
   memory), inputs from `chip_smoke.kernel_a_inputs`;
 * the scan kernel (`structural_bitmaps`): 256 MiB of the smoke's records
   and 64 MiB of bytes drawn from {'\\n', '@', '+', 'A'};
-* the ragged kernels (`ragged_qc`: the scan kernel, a cumsum of its row
-  counts, bs_ragged_lines and bs_ragged_qc, through the raw launch
+* the ragged kernels (`ragged_qc`, through the raw launch
   `_ragged_qc_raw_cuda`): 256 MiB of chip_smoke.py's ragged corpus at a
-  256-column window, with the scan kernel's own time beside it; a tree
-  without ops/ragged_qc.py skips it.
+  256-column window, with the device memory one call allocates beyond the
+  chunk (`scratch_bytes`) beside it, and the device time of the call's
+  zero fill (in a tree whose ragged step starts with the scan kernel,
+  that kernel's time); a tree without ops/ragged_qc.py skips it.
+
+With --ragged-path, each tree also drives `run_file_device` three times
+over chip_smoke.py's 1 GiB ragged corpus (written anew in each tree's
+process), each run checked against its numpy oracle and against
+`run_file` on the same file (chip_smoke.phase_ragged), with the
+`ragged_qc` launches of the first run.
 
 Each kernel is checked equal to its plain version first. `device_ms`
 queues the launches behind a sleeping kernel, so it is the card's time
@@ -92,7 +99,7 @@ def _same(got, want, label):
         raise AssertionError("%s: kernel differs from plain" % label)
 
 
-def _one_tree(tree, seed):
+def _one_tree(tree, seed, ragged_path=False):
     # this script's chip_smoke (inputs and bounds; it imports the package
     # only inside its functions), then the tree's package
     sys.path.insert(0, HERE)
@@ -163,14 +170,33 @@ def _one_tree(tree, seed):
         del c, got
     if importlib.util.find_spec("blazeseq_tpu_torch.ops.ragged_qc"):
         out["ragged_qc"] = _ragged(cs, seed)
+        if ragged_path:
+            out["run_file_device_ragged"] = _ragged_path(cs, seed)
     return out
+
+
+def _ragged_path(cs, seed, repeats=3):
+    """chip_smoke's run_file_device(ragged) path in this process, `repeats`
+    times on one corpus: each run's GB/s, run_file's on the same file, and
+    the ragged_qc launches of the first run."""
+    from blazeseq_tpu_torch.ops import ragged_qc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = cs.make_ragged_corpus(seed, tmp)
+        runs = []
+        for _ in range(repeats):
+            ragged_qc.launches = 0
+            runs.append(dict(cs.phase_ragged(corpus),
+                             ragged_qc_launches=ragged_qc.launches))
+    return dict(runs[0], gbps_runs=[r["gbps"] for r in runs],
+                host_gbps_runs=[r["host_gbps"] for r in runs])
 
 
 def _ragged(cs, seed):
     import numpy as np
     import torch
 
-    from blazeseq_tpu_torch.ops import scan
+    from blazeseq_tpu_torch import _kernels
 
     # the module (the package's `ragged_qc` attribute is the function)
     rqc = importlib.import_module("blazeseq_tpu_torch.ops.ragged_qc")
@@ -184,30 +210,49 @@ def _ragged(cs, seed):
               check_ascii=True, check_quality=True)
     _same((rqc._ragged_qc_raw_cuda(c, n, **kw),),
           (rqc._ragged_qc_raw_torch(c, n, **kw),), "ragged_qc")
-    t = _times(lambda: rqc._ragged_qc_raw_cuda(c, n, **kw), inner=5)
-    lane = c[:n // 128 * 128]
-    return dict(t, bytes=n,
-                scan_device_ms=device_ms(lambda: scan.structural_bitmaps(lane),
-                                         inner=5),
-                bound_ms=cs.bound(n + 4 * sum(rqc.raw_sizes(cs.QC_WIDTH)),
-                                  n)["bound_ms"])
+    out = dict(_times(lambda: rqc._ragged_qc_raw_cuda(c, n, **kw), inner=5),
+               bytes=n,
+               scratch_bytes=cs.ragged_scratch_bytes(rqc._ragged_qc_raw_cuda,
+                                                     c, n, **kw),
+               bound_ms=cs.bound(n + 4 * sum(rqc.raw_sizes(cs.QC_WIDTH)),
+                                 n)["bound_ms"])
+    if hasattr(rqc, "tile_count"):
+        # one pass after a zero fill: the fill on its own, and the blocks
+        # of the kernel an SM holds
+        out.update(fill_device_ms=device_ms(
+            cs.ragged_fill(c, n, cs.QC_WIDTH), inner=5),
+                   blocks_per_sm=_kernels.load().bs_ragged_qc_blocks_per_sm(
+                       cs.QC_WIDTH))
+    else:
+        # a tree whose ragged step starts with the scan kernel
+        from blazeseq_tpu_torch.ops import scan
+
+        lane = c[:n // 128 * 128]
+        out["scan_device_ms"] = device_ms(
+            lambda: scan.structural_bitmaps(lane), inner=5)
+    return out
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", action="append")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ragged-path", action="store_true",
+                    help="also time run_file_device on the 1 GiB ragged "
+                    "corpus")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.one:
-        print(json.dumps(_one_tree(os.path.abspath(args.one), args.seed)))
+        print(json.dumps(_one_tree(os.path.abspath(args.one), args.seed,
+                                   args.ragged_path)))
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     for tree in args.tree or [HERE]:
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--one", tree, "--seed", str(args.seed)],
+                              "--one", tree, "--seed", str(args.seed)]
+                             + ["--ragged-path"] * args.ragged_path,
                              capture_output=True, text=True)
         if res.returncode != 0:
             sys.stderr.write(res.stderr)

@@ -86,7 +86,7 @@ def test_every_kernel_source_is_built_and_bound():
     entries = {"validate.cu": ("bs_validate_decode",),
                "uniform_qc.cu": ("bs_uniform_qc",), "nw.cu": ("bs_nw_scores",),
                "scan.cu": ("bs_structural_bitmaps",),
-               "ragged_qc.cu": ("bs_ragged_lines", "bs_ragged_qc")}
+               "ragged_qc.cu": ("bs_ragged_qc", "bs_ragged_qc_blocks_per_sm")}
     for source, names in entries.items():
         with open(os.path.join(_kernels.CSRC, source)) as f:
             text = f.read()

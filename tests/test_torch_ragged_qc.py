@@ -272,12 +272,14 @@ def test_short_records_stay_on_device():
                                    "w=8192 clean",
                                    "view 1 byte off, odd length",
                                    "illumina_1.3 schema",
-                                   "padding past n_valid", "tiny chunk"])
+                                   "padding past n_valid", "tiny chunk",
+                                   *CHIP_SMOKE.RAGGED_TILE_CASES])
 def test_card_edge_cases_match_host_engine(label):
     """The plain version, which the card cases hold the kernels against,
     on edge cases of chip_smoke.py where the reference reports `fallback`
-    (reads of 0 and 1 bases beside reads of 3 x width): its stats equal
-    the host engine's over the complete records."""
+    (reads of 0 and 1 bases beside reads of 3 x width), and on its cases
+    at the kernels' tile boundaries: its stats equal the host engine's
+    over the complete records."""
     host, _, n_valid, kw = CHIP_SMOKE.ragged_edge_case(label, 0)
     got = ragged_qc_torch(torch.from_numpy(host), n_valid, **kw)
     assert bool(got.ok) and not bool(got.fallback)
