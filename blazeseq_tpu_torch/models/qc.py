@@ -1,6 +1,6 @@
 """QCModel: streaming FastQC-style quality control of a FASTQ file
-(counterpart of blazeseq_tpu/models/qc.py: the uniform, semi-uniform and
-ragged tiers of run_file_device, and the host-parse path).
+(counterpart of blazeseq_tpu/models/qc.py: the uniform, semi-uniform,
+ragged and stream tiers of run_file_device, and the host-parse path).
 
 `run_file(path)` (and `run_reader` / `run_parser`) parses on the host into
 padded batches; the device runs validate + QC and, with `align_to`, the
@@ -34,19 +34,32 @@ failure, from that chunk's original start; a head that is not semi-uniform;
 a record larger than half a chunk) to the ragged tier. What the ragged tier
 rejects (invalid bytes, from that chunk's start) and the trailing partial
 record go through `_host_consume`: the host parser builds padded batches,
-and the device runs validate + qc_stats on them (parallel/pipeline.py). So
-does gzip input. The report is the same on every route.
+and the device runs validate + qc_stats on them (parallel/pipeline.py).
+
+Compressed input (`.gz`, `.bgz`) inflates on the host in a background
+thread (io/readers.open_reader) and runs two stream tiers, counted under
+the same names: the uniform stream tier (kernel B on rs-aligned chunks of
+the inflated stream, each chunk's partial tail carried into the next) when
+the 64 KiB head has one layout, else the ragged stream tier (the ragged
+kernel on chunks that start at a record boundary, the carry set by the
+kernel's `tail_start`). A proof failure hands the rest of the stream, from
+the failed chunk's start, to the ragged stream tier; what that tier
+rejects and the partial tail go to the host route. There is no semi stream
+tier: variable ids in a compressed file take the ragged stream tier, as in
+the reference. The report is the same on every route.
 
 The port keeps two routes of its own, with equal reports: a uniform layout
 that kernel B refuses on the card (more than 512 stats columns, or odd
 records above ~3.9 KB, see ops/uniform_qc.kernel_takes) goes to the ragged
-tier, where the reference stays on its uniform kernel; and a chunk that the
-reference's ragged step reports as `fallback` stays on the device (the
-port's ragged kernel has no slot capacity).
+tier (the ragged stream tier for compressed input), where the reference
+stays on its uniform kernel; and a chunk that the reference's ragged step
+reports as `fallback` stays on the device (the port's ragged kernel has no
+slot capacity).
 """
 
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass
 from typing import Optional
 
@@ -79,6 +92,8 @@ _FLUSH_EVERY = 64
 # stays inside int32
 _RAGGED_MAX_MB = 256
 _TIERS = ("uniform", "semi", "ragged", "host")
+# the stream tiers read the layout from this much of the decompressed head
+_HEAD_BYTES = 1 << 16
 
 
 @dataclass
@@ -179,6 +194,27 @@ class QCReport:
         if self.nw_scores is not None:
             d["nw_score_mean"] = round(float(np.mean(self.nw_scores)), 4)
         return d
+
+
+class _ChainedReader:
+    """Reader serving buffered leftover bytes first, then an inner reader
+    (hands a partly consumed stream to the next tier or the host parser)."""
+
+    def __init__(self, leftover: bytes, inner):
+        self._left = memoryview(leftover)
+        self._pos = 0
+        self._inner = inner
+
+    def readinto(self, mv) -> int:
+        if self._pos < len(self._left):
+            n = min(len(mv), len(self._left) - self._pos)
+            mv[:n] = self._left[self._pos : self._pos + n]
+            self._pos += n
+            return n
+        return self._inner.readinto(mv)
+
+    def close(self) -> None:
+        self._inner.close()
 
 
 class QCModel:
@@ -317,13 +353,15 @@ class QCModel:
 
     def run_file_device(self, path, chunk_mb: int = 256,
                         parallelism: int = 4) -> QCReport:
-        """QC of one FASTQ file on the device (see the module docstring).
-        Uniform-tier chunks build the Phred histogram in eq-mode over the
-        values seen in the file head; a nonzero remainder bin in the report
-        triggers ONE full-bin re-run, so the result never depends on the
-        peek. The semi and ragged tiers take full bins: their kernels build
-        every bin whatever the set, so a peek would buy them nothing and
-        cost a second pass over the file whenever it missed a value."""
+        """QC of one FASTQ file, plain or compressed, on the device (see
+        the module docstring). Uniform-tier chunks of a plain file build the
+        Phred histogram in eq-mode over the values seen in the file head; a
+        nonzero remainder bin in the report triggers ONE full-bin re-run, so
+        the result never depends on the peek. The semi and ragged tiers and
+        both stream tiers take full bins: their kernels build every bin
+        whatever the set, so a peek would buy them nothing and cost a second
+        pass over the file whenever it missed a value (a stream cannot be
+        read twice without inflating it again)."""
         self._hist_his = set()
         rep = self._run_file_device_once(path, chunk_mb, parallelism,
                                          adaptive=True)
@@ -349,8 +387,7 @@ class QCModel:
         self.tier_chunks = dict.fromkeys(_TIERS, 0)
         acc = QCAccumulator()
         if p.endswith(".gz") or p.endswith(".bgz"):
-            self._host_consume(self._parser(
-                open_reader(p, parallelism=parallelism)), acc)
+            self._run_stream_device(p, chunk_mb, parallelism, acc)
             return self._report_from_acc(acc)
         reader = MmapReader(p)
         data = reader.as_array()
@@ -602,6 +639,156 @@ class QCModel:
             pos = fail_pos
         if pos < total:
             self._host_consume(self._parser(MemoryReader(data[pos:])), acc)
+
+    def _run_stream_device(self, path, chunk_mb: int, parallelism: int,
+                           acc) -> None:
+        """Uniform stream tier: compressed input inflates on the host
+        (io/readers.open_reader: a BGZF block pool, or parallel marker
+        inflate of one gzip stream, in a background thread) into rs-aligned
+        chunks that kernel B takes as on the uniform mmap tier. A head that
+        is not uniform, a record larger than half a chunk and a layout that
+        kernel B refuses on the card go to the ragged stream tier; so does
+        the rest of the stream after a chunk fails its proof. The trailing
+        partial record goes to the host route."""
+        reader = open_reader(path, parallelism=parallelism)
+        try:
+            head = bytearray()
+            scratch = bytearray(_HEAD_BYTES)
+            head_eof = False
+            while len(head) < _HEAD_BYTES:
+                n = reader.readinto(memoryview(scratch))
+                if n == 0:
+                    head_eof = True
+                    break
+                head += scratch[:n]
+            head = bytes(head)
+            lay = detect_uniform_layout(head)
+            if (lay is None or lay.rs > chunk_mb << 19
+                    or not self._kernel_takes(lay.rs, lay.seq_len)):
+                self._run_ragged_stream(head, reader, chunk_mb, acc)
+            else:
+                self._run_uniform_stream(lay, head, head_eof, reader,
+                                         chunk_mb, acc)
+        finally:
+            reader.close()
+
+    def _run_uniform_stream(self, lay, head: bytes, head_eof: bool, reader,
+                            chunk_mb: int, acc) -> None:
+        """The uniform stream tier's chunk loop (see _run_stream_device)
+        from the peeked `head` on. Each buffer holds `carry` bytes copied
+        from the previous chunk's tail (past its last whole record), then
+        fresh stream bytes. A chunk's verdict arrives `depth` dispatches
+        late; on a failure the unconsumed stream is the failed chunk's whole
+        buffer, then the fresh bytes of every later chunk, in flight or not
+        yet dispatched (keep_bytes=True keeps those buffers out of rotation
+        until their results are delivered)."""
+        csize = max((chunk_mb << 20) // lay.rs, 1) * lay.rs
+        if head_eof:
+            # the whole stream is in the head: no chunk larger than it
+            csize = max(min(csize, -(-len(head) // lay.rs) * lay.rs), lay.rs)
+        ing = OverlappedIngest(self._device_uqc(lay, self.max_read_len),
+                               csize, keep_bytes=True, row_bytes=lay.rs,
+                               device=self.device)
+        pending = deque()  # (buffer, fill, carry) of each chunk in flight
+        rest = None  # on a failure: the stream bytes the device did not take
+
+        def consume(ready):
+            nonlocal rest
+            for _meta, (ok, st) in ready:
+                b, f, c = pending.popleft()
+                if rest is not None:
+                    continue
+                if bool(ok):
+                    acc.add(st)
+                    self.tier_chunks["uniform"] += 1
+                else:
+                    rest = [bytes(b[:f])] + [bytes(pb[pc:pf])
+                                             for pb, pf, pc in pending]
+        buf = ing.acquire()
+        fill, carry, eof = len(head), 0, head_eof  # the head is fresh bytes
+        buf[:fill] = np.frombuffer(head, np.uint8)
+        while True:
+            while fill < csize and not eof:
+                n = reader.readinto(memoryview(buf)[fill:])
+                if n == 0:
+                    eof = True
+                fill += n
+            n_valid = fill // lay.rs * lay.rs
+            if n_valid == 0:
+                break  # a partial record ends the stream
+            buf[fill:] = 0
+            pending.append((buf, fill, carry))
+            consume(ing.feed(buf, n_valid))
+            rem = fill - n_valid
+            if rest is not None or (eof and rem == 0):
+                buf = None  # dispatched: nothing of it is left over
+                break
+            nbuf = ing.acquire()
+            nbuf[:rem] = buf[n_valid:fill]
+            buf, fill, carry = nbuf, rem, rem
+        consume(ing.drain())
+        if rest is not None:
+            if buf is not None:
+                rest.append(bytes(buf[carry:fill]))
+            # the failed chunk starts at a record boundary: every accepted
+            # chunk ends at one
+            self._run_ragged_stream(
+                b"", _ChainedReader(b"".join(rest), reader), chunk_mb, acc)
+        elif buf is not None and fill:
+            self._host_consume(self._parser(MemoryReader(bytes(buf[:fill]))),
+                               acc)
+
+    def _run_ragged_stream(self, head: bytes, reader, chunk_mb: int,
+                           acc) -> None:
+        """Ragged stream tier: the decompressed stream, from `head` on,
+        fills chunks of up to chunk_mb (capped as on the ragged mmap tier)
+        that start at a record boundary. The ragged kernel parses, validates
+        and QCs each chunk and reports where its last whole record ends; the
+        bytes past it open the next chunk. A rejected chunk, or one with no
+        whole record, hands its bytes and the rest of the stream to the host
+        route, as does the stream's partial tail. Chunks upload through
+        pinned staging (OverlappedIngest with depth 0, so each result
+        returns at once); the reader's inflate thread runs meanwhile."""
+        K = 2 * self.max_read_len
+        csize = max((min(chunk_mb, _RAGGED_MAX_MB) << 20) // K, 1) * K
+        fill = len(head)
+        if fill > csize:
+            # a head larger than a chunk (a tiny chunk_mb, a wide window)
+            self._host_consume(self._parser(_ChainedReader(head, reader)),
+                               acc)
+            return
+        buf = native.aligned_empty(csize)
+        buf[:fill] = np.frombuffer(head, np.uint8)
+        ing = None
+        eof = False
+        while True:
+            while fill < csize and not eof:
+                n = reader.readinto(memoryview(buf)[fill:csize])
+                if n == 0:
+                    eof = True
+                fill += n
+            if fill == 0:
+                break
+            if ing is None:
+                if eof:
+                    # the whole stream fits in one chunk: no larger chunk
+                    csize = max(-(-fill // K) * K, K)
+                ing = OverlappedIngest(self._device_rqc, csize, depth=0,
+                                       device=self.device)
+            buf[fill:csize] = 0
+            ((_, r),) = ing.feed(buf[:csize], fill, owned=False)
+            tail = int(r.tail_start)
+            if not bool(r.ok) or bool(r.fallback) or tail == 0:
+                break  # this chunk and the rest go to the host route
+            acc.add(r.stats)
+            self.tier_chunks["ragged"] += 1
+            fill -= tail
+            buf[:fill] = buf[tail:tail + fill]
+            if eof and fill == 0:
+                break
+        if fill:
+            self._host_consume(self._parser(
+                _ChainedReader(bytes(buf[:fill]), reader)), acc)
 
     def _parser(self, reader) -> FastqParser:
         """Structure-only host parser: validation runs on the device, so bad

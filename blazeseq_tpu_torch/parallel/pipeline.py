@@ -1,5 +1,5 @@
-"""The padded-batch analysis step (counterpart of the no-mesh form of
-blazeseq_tpu/parallel/pipeline.py::build_qc_align_step).
+"""The padded-batch analysis step (counterpart of the no-mesh forms of
+blazeseq_tpu/parallel/pipeline.py::build_qc_align_step and run_qc_align).
 
 Validate + decode (ops/validate.py), then `qc_stats` with the error codes,
 then, with alignment, the global alignment score of every row against the
@@ -11,11 +11,13 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..ops import nw as nw_ops
 from ..ops import stats as stats_ops
 from ..ops import validate as validate_ops
+from ..ops.common import resolve_device
 
 
 class QCAlignResult(NamedTuple):
@@ -64,3 +66,22 @@ def build_qc_align_step(mesh=None, *, check_ascii: bool = True,
                              check_quality=check_quality,
                              with_alignment=with_alignment,
                              qual_hist_2d=qual_hist_2d)
+
+
+def run_qc_align(padded_batch, ref, schema, mesh=None, *, device="cuda",
+                 with_alignment: bool = True, **kw) -> QCAlignResult:
+    """Run the analysis step on one PaddedFastqBatch against the reference
+    read `ref` (bytes or a u8 array), with alignment unless asked not to,
+    as the reference's wrapper does. The batch and `ref` go to `device`:
+    "cuda" (the default) needs a card and raises without one; "cpu" runs
+    the plain versions of the kernels. `kw` goes to build_qc_align_step."""
+    dev = resolve_device(device, "run_qc_align")
+    step = build_qc_align_step(mesh, with_alignment=with_alignment, **kw)
+    seq, qual, lengths = (
+        torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        for a in (padded_batch.seq, padded_batch.qual,
+                  np.asarray(padded_batch.lengths, np.int32)))
+    refv = torch.from_numpy(np.frombuffer(bytes(ref), np.uint8).copy()
+                            if isinstance(ref, (bytes, bytearray))
+                            else np.asarray(ref, np.uint8)).to(dev)
+    return step(seq, qual, lengths, int(padded_batch.n_records), schema, refv)

@@ -15,6 +15,11 @@ the launch counts set to 0 just before it and read just after:
   varying width) and the 1 GiB ragged file (reads of 35-300 bp, ids of
   10-60 bytes), every chunk on the semi and the ragged tier, each against
   the numpy oracle and against run_file (the host route) on the same file;
+* run_file_device over compressed input: a 1 GiB uniform FASTQ as one
+  gzip member (level 1, pigz's layout; the uniform stream tier) and the
+  1 GiB ragged file as BGZF (the ragged stream tier), each against the
+  numpy oracle and against run_file on the same file, with the inflate
+  alone timed beside them;
 * its fallback route (a mid-file quality error and a trailing partial
   record) against the same call on the CPU;
 * NWAligner on 1M reads x 40 bp against a 40 bp reference in batches of
@@ -42,12 +47,15 @@ from __future__ import annotations
 import argparse
 import concurrent.futures as cf
 import json
+import mmap
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 
@@ -98,6 +106,11 @@ QC_WIDTH = 256
 # run_file_device(semi): 150 bp reads under Illumina-style ids whose tile,
 # x and y fields are not zero-padded
 SEMI_BYTES = 1 << 30
+GZIP_BYTES = 1 << 30  # the uniform corpus of the gzip path, before inflate
+GZIP_BLOCK = 1 << 20  # the span each thread deflates (pigz's layout)
+BGZF_PAYLOAD = 65280  # bytes a BGZF block holds (io/writers.BGZFWriter)
+BGZF_EOF = bytes.fromhex(
+    "1f8b08040000000000ff0600424302001b0003000000000000000000")
 SEMI_PREFIX = b"@A00123:8:H7GKLDSXX:1:"
 SEMI_SUFFIX = b" 1:N:0:1"
 # merge: 250,000 pairs from 200 bp fragments, R1 = the first 150 bp, R2 =
@@ -327,6 +340,65 @@ def write_ragged_corpus(path, target_bytes, seed):
                   qual_hist=sum(p[1] for p in parts),
                   window=_sum_oracles([p[2] for p in parts]))
     return oracle, np.append(starts, oracle["bytes"])
+
+
+def _deflate_span(mm, lo, hi, level):
+    """The raw deflate of mm[lo:hi], primed with the 32 KiB before it and
+    ended by a sync flush, or by the final block at the end of mm."""
+    kw = dict(zdict=mm[max(0, lo - (1 << 15)):lo]) if lo else {}
+    c = zlib.compressobj(level, zlib.DEFLATED, -15, **kw)
+    return c.compress(mm[lo:hi]) + c.flush(
+        zlib.Z_FINISH if hi == len(mm) else zlib.Z_SYNC_FLUSH)
+
+
+def _bgzf_block(mm, lo, hi, level):
+    """One BGZF block of mm[lo:hi]: a gzip member with the BC extra field
+    holding its size, as io/writers.BGZFWriter writes it."""
+    payload = mm[lo:hi]
+    c = zlib.compressobj(level, zlib.DEFLATED, -15)
+    body = c.compress(payload) + c.flush()
+    if len(body) + 26 > 1 << 16:
+        raise ValueError("a BGZF block of %d bytes does not compress "
+                         "below 64 KiB" % len(payload))
+    return (b"\x1f\x8b\x08\x04" + b"\x00" * 6
+            + struct.pack("<HBBHH", 6, 66, 67, 2, len(body) + 25)
+            + body + struct.pack("<II", zlib.crc32(payload),
+                                 len(payload) & 0xFFFFFFFF))
+
+
+def write_compressed(src, dst, fmt):
+    """Compress the FASTQ file `src` into `dst`, the spans deflated by a
+    thread pool (zlib releases the GIL). "gzip": one gzip member at zlib
+    level 1, laid out as pigz writes it (1 MiB spans, each primed with the
+    32 KiB before it and ended by a sync flush), so any inflater reads one
+    deflate stream with references across the spans. "bgzf": the bgzip
+    format at zlib level 6 (64 KiB blocks, then the EOF block). Returns the
+    compressed size."""
+    span, job, level = ((GZIP_BLOCK, _deflate_span, 1) if fmt == "gzip"
+                        else (BGZF_PAYLOAD, _bgzf_block, 6))
+    crc = 0
+    with open(src, "rb") as f, open(dst, "wb") as out:
+        mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        try:
+            n = len(mm)
+            if fmt == "gzip":
+                out.write(b"\x1f\x8b\x08\x00\x00\x00\x00\x00\x00\xff")
+            with cf.ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
+                for lo0 in range(0, n, 64 * span):
+                    spans = [(lo, min(lo + span, n)) for lo in
+                             range(lo0, min(lo0 + 64 * span, n), span)]
+                    parts = [ex.submit(job, mm, lo, hi, level)
+                             for lo, hi in spans]
+                    if fmt == "gzip":
+                        for lo, hi in spans:
+                            crc = zlib.crc32(mm[lo:hi], crc)
+                    for part in parts:
+                        out.write(part.result())
+        finally:
+            mm.close()
+        out.write(struct.pack("<II", crc, n & 0xFFFFFFFF) if fmt == "gzip"
+                  else BGZF_EOF)
+    return os.path.getsize(dst)
 
 
 def _semi_block(seed, block, start, n):
@@ -1491,13 +1563,56 @@ def phase_kernel_ragged(seed, tmp):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd), notes
 
 
+def _time_stream_tiers(model):
+    """Instrument `model`'s stream tiers for one run: time spent in the
+    reader's readinto, and the moment the ragged stream tier starts. Call
+    the returned function with the run's start time after the run; it
+    undoes the instrumentation and returns both."""
+    from blazeseq_tpu_torch.models import qc as qc_mod
+
+    opened, ragged = qc_mod.open_reader, model._run_ragged_stream
+    waited, started = [0.0], []
+
+    class TimedReader:
+        def __init__(self, inner):
+            self._inner = inner
+
+        def readinto(self, mv):
+            t = time.perf_counter()
+            try:
+                return self._inner.readinto(mv)
+            finally:
+                waited[0] += time.perf_counter() - t
+
+        def close(self):
+            self._inner.close()
+
+    def ragged_stream(*a):
+        started.append(time.perf_counter())
+        return ragged(*a)
+
+    qc_mod.open_reader = lambda p, parallelism=4: TimedReader(
+        opened(p, parallelism=parallelism))
+    model._run_ragged_stream = ragged_stream
+
+    def done(t0):
+        qc_mod.open_reader = opened
+        del model._run_ragged_stream
+        return dict(reader_wait_s=waited[0],
+                    ragged_from_s=started[0] - t0 if started else None)
+    return done
+
+
 def _device_and_host(path, oracle, size, label, tier):
     """run_file_device on the card, checked against the oracle and routed
     wholly through `tier`, then run_file (the host route) on the same file
-    in the same call, every panel equal."""
+    in the same call, every panel equal. `size` is the FASTQ's size: for a
+    compressed file, its size once inflated, and the inflate alone is timed
+    too."""
     import torch
 
     from blazeseq_tpu_torch import QCModel
+    from blazeseq_tpu_torch.io.readers import open_reader
 
     # one plain read of the file first: its time shows whether the page
     # cache holds the file (the metric is taken with a warm cache)
@@ -1507,11 +1622,45 @@ def _device_and_host(path, oracle, size, label, tier):
         while f.readinto(buf):
             pass
     read_s = time.perf_counter() - t0
+    stream = {}
+    if path.endswith((".gz", ".bgz")):
+        # the inflate alone: the reader run_file_device opens, drained
+        t0 = time.perf_counter()
+        reader = open_reader(path, 4)
+        n, view = 0, memoryview(buf)
+        try:
+            while True:
+                k = reader.readinto(view)
+                if not k:
+                    break
+                n += k
+        finally:
+            reader.close()
+        inflate_s = time.perf_counter() - t0
+        if n != size:
+            raise AssertionError("%s: %d bytes inflated, %d expected"
+                                 % (label, n, size))
+        stream = dict(compressed_bytes=os.path.getsize(path),
+                      inflate_s=inflate_s, inflate_gbps=size / inflate_s / 1e9)
+        log("%s: %d compressed bytes, %d inflated; the inflate alone %.3f "
+            "s, %.3f GB/s of inflated bytes" % (
+                label, stream["compressed_bytes"], size, inflate_s,
+                stream["inflate_gbps"]))
     model = QCModel(quality_schema="sanger", device="cuda")
+    if stream:
+        # where a stream's time goes: the tiers' wait in the reader (the
+        # inflate), and when a uniform proof failure handed the rest to the
+        # ragged stream tier (one Python frame more per readinto call, each
+        # of which serves up to a 64 KiB block inflated)
+        timers = _time_stream_tiers(model)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rep = model.run_file_device(path)
-    torch.cuda.synchronize()
+    try:
+        rep = model.run_file_device(path)
+        torch.cuda.synchronize()
+    finally:
+        if stream:
+            stream.update(timers(t0))
     wall = time.perf_counter() - t0
     check_report(rep, oracle, model.max_read_len)
     tiers = model.tier_chunks
@@ -1528,9 +1677,15 @@ def _device_and_host(path, oracle, size, label, tier):
         "(host route) %.3f s, %.3f GB/s; reports equal" % (
             label, size, rep.reads, rep.bases, read_s, wall,
             size / wall / 1e9, tiers, host_wall, size / host_wall / 1e9))
+    if stream:
+        log("%s: run_file_device waited %.3f s in the reader; the ragged "
+            "stream tier took over at %s" % (
+                label, stream["reader_wait_s"],
+                "no point" if stream["ragged_from_s"] is None
+                else "%.3f s" % stream["ragged_from_s"]))
     return dict(bytes=size, read_s=read_s, wall_s=wall, gbps=size / wall / 1e9,
                 chunks=tiers[tier], host_wall_s=host_wall,
-                host_gbps=size / host_wall / 1e9)
+                host_gbps=size / host_wall / 1e9, **stream)
 
 
 def phase_semi(seed, tmp):
@@ -1548,6 +1703,58 @@ def phase_semi(seed, tmp):
                                 "semi")
     finally:
         os.unlink(path)
+
+
+def phase_gzip(seed, tmp):
+    """A 1 GiB uniform FASTQ compressed as one gzip member through
+    run_file_device on the card: every chunk on the uniform stream tier,
+    against the numpy oracle and run_file on the same .gz."""
+    need = GZIP_BYTES + (GZIP_BYTES >> 1) + (256 << 20)
+    free = shutil.disk_usage(tmp).free
+    if free < need:
+        raise RuntimeError("the gzip path needs %d free bytes in %s, found "
+                           "%d" % (need, tmp, free))
+    plain = os.path.join(tmp, "gzip.fastq")
+    path = plain + ".gz"
+    n = GZIP_BYTES // RS
+    try:
+        t0 = time.perf_counter()
+        oracle = write_corpus(plain, n, seed + 31)
+        t1 = time.perf_counter()
+        comp = write_compressed(plain, path, "gzip")
+        log("gzip corpus: %d records of %d bytes written in %.1f s, "
+            "compressed to %d bytes (one gzip member, level 1) in %.1f s"
+            % (n, RS, t1 - t0, comp, time.perf_counter() - t1))
+        os.unlink(plain)
+        return _device_and_host(path, oracle, n * RS,
+                                "run_file_device(gzip)", "uniform")
+    finally:
+        for p in (plain, path):
+            if os.path.exists(p):
+                os.unlink(p)
+
+
+def phase_bgzf_ragged(ragged, tmp):
+    """The 1 GiB ragged FASTQ written as BGZF through run_file_device on the
+    card: every chunk on the ragged stream tier, against the numpy oracle
+    and run_file on the same .bgz."""
+    src, oracle, _ = ragged
+    need = (oracle["bytes"] >> 1) + (256 << 20)
+    free = shutil.disk_usage(tmp).free
+    if free < need:
+        raise RuntimeError("the BGZF path needs %d free bytes in %s, found "
+                           "%d" % (need, tmp, free))
+    path = os.path.join(tmp, "ragged.fastq.bgz")
+    try:
+        t0 = time.perf_counter()
+        comp = write_compressed(src, path, "bgzf")
+        log("ragged corpus compressed to %d bytes of BGZF (level 6) in "
+            "%.1f s" % (comp, time.perf_counter() - t0))
+        return _device_and_host(path, oracle["window"], oracle["bytes"],
+                                "run_file_device(bgzf ragged)", "ragged")
+    finally:
+        if os.path.exists(path):
+            os.unlink(path)
 
 
 def phase_ragged(ragged):
@@ -1906,8 +2113,12 @@ def main(argv=None):
          ("uniform_qc",)),
         ("run_file_device(semi)", lambda: phase_semi(args.seed, tmp),
          ("uniform_qc",)),
+        ("run_file_device(gzip)", lambda: phase_gzip(args.seed, tmp),
+         ("uniform_qc",)),
         ("run_file_device(ragged)", lambda: phase_ragged(ragged()),
          ("ragged_qc",)),
+        ("run_file_device(bgzf ragged)",
+         lambda: phase_bgzf_ragged(ragged(), tmp), ("ragged_qc",)),
         ("fallback", lambda: phase_fallback(args.seed, tmp),
          ("validate_decode",)),
         ("NWAligner", phase_aligner, ("nw_scores",)),
@@ -1932,12 +2143,17 @@ def main(argv=None):
                 if got[k] == 0:
                     raise AssertionError("kernel %s was never launched on "
                                          "the %s path" % (k, path_name))
-            if (path_name == "run_file_device(ragged)"
-                    and got["ragged_qc"] != e2e[path_name]["chunks"]):
-                # the ragged tier takes full-bin histograms: one pass
+            one_pass = {"run_file_device(gzip)": "uniform_qc",
+                        "run_file_device(ragged)": "ragged_qc",
+                        "run_file_device(bgzf ragged)": "ragged_qc"}
+            if (path_name in one_pass and got[one_pass[path_name]]
+                    != e2e[path_name]["chunks"]):
+                # the ragged and stream tiers take full-bin histograms: one
+                # pass, one launch a chunk
                 raise AssertionError(
-                    "%d ragged_qc launches for %d ragged chunks"
-                    % (got["ragged_qc"], e2e[path_name]["chunks"]))
+                    "%d %s launches for %d chunks on the %s path"
+                    % (got[one_pass[path_name]], one_pass[path_name],
+                       e2e[path_name]["chunks"], path_name))
             for k, v in got.items():
                 launches[k] += v
     finally:

@@ -8,7 +8,12 @@ Every file in tests/data/fastq_parser/ goes through both parsers (through
 modes: the same records, or the same error class, code and message with
 its "Record number:" context. Also: padded batches leaf by leaf at two
 widths, gzip and BGZF corpora, the generator byte for byte, write_html
-byte for byte, and FASTA, FAI and FQI results. Nothing here needs a card.
+byte for byte, and FASTA, FAI and FQI results. Also the copies added with
+the rest of the reference's surface: BED, GFF3 and GTF on every file of
+tests/data/bed_parser/ and tests/data/agat/ and on the inline inputs of
+tests/test_bed_gff_gtf.py, the multi-core host feed against the
+reference's on a multi-shard file, and the public names of both packages.
+Nothing here needs a card.
 """
 
 import gzip
@@ -37,6 +42,13 @@ FASTQ_DIR = os.path.join(DATA, "fastq_parser")
 FASTA_DIR = os.path.join(DATA, "fasta_parser")
 FASTQ_FILES = sorted(os.listdir(FASTQ_DIR))
 FASTA_FILES = sorted(f for f in os.listdir(FASTA_DIR) if f != "README.md")
+BED_DIR = os.path.join(DATA, "bed_parser")
+AGAT_DIR = os.path.join(DATA, "agat")
+FEATURE_FILES = sorted(
+    ["bed_parser/" + f for f in os.listdir(BED_DIR) if f.endswith(".bed")]
+    + ["agat/" + os.path.relpath(os.path.join(d, f), AGAT_DIR)
+       for d, _, fs in os.walk(AGAT_DIR) for f in fs
+       if f.endswith((".gff", ".gtf"))])
 
 
 def _schema_of(name):
@@ -448,3 +460,228 @@ def test_peek_semi_uniform_matches():
         for kw in ({}, dict(head_bytes=300, margin=0)):
             assert (PortQCModel._peek_semi_uniform(a, **kw)
                     == RefQCModel._peek_semi_uniform(a, **kw)), (h[:40], kw)
+
+
+# ------------------------------------------------------------ BED, GFF3, GTF
+
+def _feature_outcome(pkg, reader, kind, strict=False):
+    """What one package's BED / GFF3 / GTF parser makes of a source: ("ok",
+    each record's line and length, and the GFF3 sequence regions) or
+    ("error", class name, message, the records before it)."""
+    if kind == "bed":
+        parser = pkg.BedParser(reader)
+    elif kind == "gff":
+        parser = pkg.Gff3Parser(reader)
+    else:
+        parser = pkg.GtfParser(reader, strict_mandatory_attrs=strict)
+    got = []
+    try:
+        for rec in parser.records():
+            got.append((rec.to_bytes(), len(rec)))
+    except Exception as e:  # compared by class name and message
+        return ("error", type(e).__name__, str(e), got)
+    regions = ([(r.seqid, str(r.region))
+                for r in parser.sequence_regions()]
+               if kind == "gff" else None)
+    return ("ok", got, regions)
+
+
+@pytest.mark.parametrize("rel", FEATURE_FILES)
+def test_feature_file_matches_reference(rel):
+    """Every BED fixture and AGAT GFF3 / GTF file through both packages'
+    parsers (GTF without mandatory attributes, as tests/test_bed_gff_gtf.py
+    sweeps it): the same records or the same error."""
+    path = os.path.join(DATA, rel)
+    kind = os.path.splitext(rel)[1][1:]
+    want = _feature_outcome(ref, ref.FileReader(path), kind)
+    got = _feature_outcome(port, port.FileReader(path), kind)
+    assert got == want
+    assert got[0] == "error" or got[1]
+
+
+_GFF_BASIC = (b"##gff-version 3\n##sequence-region ctg123 1 1497228\n"
+              b"ctg123\t.\tgene\t1000\t9000\t.\t+\t.\tID=gene00001;"
+              b"Name=EDEN\nctg123\t.\tmRNA\t1050\t9000\t6.2\t+\t.\t"
+              b"ID=mRNA1;Parent=gene00001\nctg123\t.\tCDS\t1201\t1500\t.\t"
+              b"+\t0\tID=cds1;Parent=mRNA1\n")
+_GTF_LINE = (b'chr1\thavana\tgene\t11869\t14409\t.\t+\t.\t'
+             b'gene_id "ENSG0001"; transcript_id "ENST0001"; '
+             b'gene_name "DDX11L1"; exon_number 3;\n')
+# the inline inputs of tests/test_bed_gff_gtf.py: (parser, bytes, strict)
+FEATURE_INPUTS = [
+    ("bed", b"# comment\ntrack name=x\nbrowser position chr1\n"
+     b"chr1\t10\t20\n\nchr2\t5\t9\n", False),
+    ("bed", b"chr1\t10\n", False),
+    ("bed", b"chr1\t30\t20\n", False),
+    ("bed", b"chr1\t1x\t20\n", False),
+    ("bed", b"chr1\t1\t2\tn\t2000\n", False),
+    ("bed", b"chr1\t1\t2\tn\t0\tx\n", False),
+    ("bed", b"chr1\t1\t2\tn\t0\t+\t1\t2\t1,2\n", False),
+    ("bed", b"chr1\t1\t2\tn\t0\t+\t1\t2\t300,0,0\n", False),
+    ("bed", b"chr1\t1\t2\tn\t0\t+\t1\t2\t0\textraA\n", False),
+    ("gff", _GFF_BASIC, False),
+    ("gff", _GFF_BASIC + b"##FASTA\n>ctg123\nACGT\n", False),
+    ("gff", b"##gff-version 2\nctg\t.\tg\t1\t2\t.\t+\t.\tID=1\n", False),
+    ("gff", b"##gff-version 3.1.26\nctg\t.\tg\t1\t2\t.\t+\t.\tID=1\n",
+     False),
+    ("gff", b"a\tb\tc\n", False),
+    ("gff", b"a\tb\tg\t0\t5\t.\t+\t.\t.\n", False),
+    ("gff", b"a\tb\tg\t9\t5\t.\t+\t.\t.\n", False),
+    ("gff", b"a\tb\tg\t1\t5\t.\tx\t.\t.\n", False),
+    ("gff", b"a\tb\tg\t1\t5\t.\t+\t7\t.\n", False),
+    ("gff", b"a\tb\tCDS\t1\t5\t.\t+\t.\t.\n", False),
+    ("gtf", _GTF_LINE, True),
+    ("gtf", b"#!genome-build x\n" + _GTF_LINE, True),
+    ("gtf", b'chr1\ts\tgene\t1\t5\t.\t+\t.\tgene_name "x";\n', True),
+    ("gtf", b'chr1\ts\tgene\t1\t5\t.\t+\t.\tgene_name "x";\n', False),
+]
+
+
+@pytest.mark.parametrize("case", range(len(FEATURE_INPUTS)))
+def test_feature_input_matches_reference(case):
+    kind, data, strict = FEATURE_INPUTS[case]
+    want = _feature_outcome(ref, ref.MemoryReader(data), kind, strict)
+    got = _feature_outcome(port, port.MemoryReader(data), kind, strict)
+    assert got == want
+
+
+def test_feature_attributes_and_writer_match():
+    """Attribute parsers on the reference test's values, and BED records
+    written back by BedWriter, byte for byte."""
+    from blazeseq_tpu.gff import parse_target_attribute as ref_target
+    from blazeseq_tpu_torch.gff import parse_target_attribute as port_target
+
+    gff = b"ID=x%3By;Dbxref=DB:1,DB:2;Note=a%2Cb"
+    assert (port.parse_gff3_attributes(gff).items()
+            == ref.parse_gff3_attributes(gff).items())
+    gtf = b'gene_id "g;1"; transcript_id "t\\"x"; note "a\\\\b";'
+    a, b = port.parse_gtf_attributes(gtf), ref.parse_gtf_attributes(gtf)
+    assert (a.gene_id, a.transcript_id, a.get("note")) == (
+        b.gene_id, b.transcript_id, b.get("note"))
+    for t in (b"EST23 1 21 +", b"EST9 5 10"):
+        x, y = port_target(t), ref_target(t)
+        assert (x.target_id, x.start, x.end, str(x.strand)) == (
+            y.target_id, y.start, y.end, str(y.strand))
+    for n in (3, 6, 12):
+        path = os.path.join(BED_DIR, "bed%d.bed" % n)
+        outs = []
+        for pkg in (port, ref):
+            w = pkg.buffered_writer_for_memory()
+            bw = pkg.BedWriter(w)
+            for r in pkg.BedParser(pkg.FileReader(path)).records():
+                bw.write_record(r)
+            w.flush()
+            outs.append(w._backend.getvalue())
+        assert outs[0] == outs[1] and outs[0]
+
+
+# ------------------------------------------------------ multi-core host feed
+
+@pytest.fixture(scope="module")
+def feed_file(tmp_path_factory):
+    p = tmp_path_factory.mktemp("feed") / "corpus.fastq"
+    p.write_bytes(bytes(ref.generate_synthetic_fastq_buffer(
+        5000, 40, 160, 2, 40, "sanger")))
+    return str(p)
+
+
+def _feed_rows(pkg, path, workers):
+    """(shard id, seq, qual) of every record parallel_padded_batches
+    yields, sorted (shards finish in any order)."""
+    from importlib import import_module
+
+    feed = import_module(pkg.__name__ + ".parallel.feed")
+    rows = []
+    for sid, pb in feed.parallel_padded_batches(path, workers=workers,
+                                                max_records=257,
+                                                max_len=192):
+        for i in range(pb.n_records):
+            L = min(int(pb.lengths[i]), 192)
+            rows.append((sid, pb.seq[i, :L].tobytes(),
+                         pb.qual[i, :L].tobytes(), int(pb.lengths[i])))
+    return sorted(rows)
+
+
+@pytest.mark.parametrize("workers", [1, 3, 7])
+def test_parallel_feed_matches_reference(feed_file, workers):
+    from blazeseq_tpu.parallel import feed as ref_feed
+    from blazeseq_tpu_torch.parallel import feed as port_feed
+
+    assert (port_feed.parallel_count(feed_file, workers=workers)
+            == ref_feed.parallel_count(feed_file, workers=workers))
+    got = _feed_rows(port, feed_file, workers)
+    assert got == _feed_rows(ref, feed_file, workers)
+    assert len(got) == 5000
+
+
+def test_parallel_feed_error_matches_reference(tmp_path):
+    from blazeseq_tpu.parallel import feed as ref_feed
+    from blazeseq_tpu_torch.parallel import feed as port_feed
+
+    lines = bytes(ref.generate_synthetic_fastq_buffer(
+        1000, 50, 50, 2, 40, "sanger")).split(b"\n")
+    lines[900 * 4 + 2] = b"*"  # a bad separator in a later shard
+    path = tmp_path / "bad.fastq"
+    path.write_bytes(b"\n".join(lines))
+
+    def outcome(fn):
+        try:
+            fn()
+        except Exception as e:  # compared by class name and message
+            return type(e).__name__, str(e)
+        return None
+
+    got, want = ((outcome(lambda: list(feed.parallel_padded_batches(
+                      str(path), workers=3))),
+                  outcome(lambda: feed.parallel_count(str(path), workers=3)))
+                 for feed in (port_feed, ref_feed))
+    assert got == want
+    assert None not in got
+
+
+# ------------------------------------------------------------- public names
+
+# The reference's mesh names belong to the multi-GPU slice of the port
+# (ROADMAP Queue 1 item 13) and are not ported yet.
+MESH_NAMES = {"DP_AXIS", "make_mesh", "batch_sharding", "replicated",
+              "shard_batch", "init_distributed", "run_multihost_qc",
+              "build_uniform_qc_step", "build_ragged_qc_step"}
+
+
+def _public_names(module):
+    """The names a package's __init__ imports or defines."""
+    import ast
+
+    tree = ast.parse(open(module.__file__).read())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            names.update(a.asname or a.name for a in node.names)
+        elif isinstance(node, ast.FunctionDef) and \
+                not node.name.startswith("_"):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+    return names - {"annotations"}
+
+
+@pytest.mark.parametrize("namespace", ["", ".parallel"])
+def test_public_names_resolve_in_port(namespace):
+    """Every public name of blazeseq_tpu and blazeseq_tpu.parallel resolves
+    in the port, to an object of the port's own, except the mesh names."""
+    from importlib import import_module
+
+    ref_mod = import_module("blazeseq_tpu" + namespace)
+    port_mod = import_module("blazeseq_tpu_torch" + namespace)
+    names = _public_names(ref_mod) - MESH_NAMES
+    assert len(names) > (80 if not namespace else 8)
+    missing = sorted(n for n in names if not hasattr(port_mod, n))
+    assert not missing, missing
+    for n in names:
+        obj = getattr(port_mod, n)
+        mod = getattr(obj, "__module__", None)
+        assert mod is None or not mod.startswith("blazeseq_tpu."), (n, mod)
+    assert not MESH_NAMES & set(dir(port_mod))
+    if not namespace:
+        assert port.__version__ == ref.__version__

@@ -18,7 +18,8 @@ import blazeseq_tpu as bt
 from blazeseq_tpu.fastq.parser import FastqParser, ParserConfig
 from blazeseq_tpu.fastq.quality import parse_schema
 from blazeseq_tpu.io.readers import MemoryReader
-from blazeseq_tpu_torch.parallel.pipeline import build_qc_align_step
+from blazeseq_tpu_torch.parallel.pipeline import (build_qc_align_step,
+                                                  run_qc_align)
 
 SANGER = parse_schema("sanger")
 
@@ -145,3 +146,27 @@ def test_align_step_needs_a_reference():
 def test_unported_step_options_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         build_qc_align_step(**kw)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(with_alignment=False),
+                                dict(check_quality=False, qual_hist_2d=True)])
+def test_run_qc_align_matches_reference(kw):
+    """The wrapper on one padded batch and a reference read given as bytes,
+    against the reference's run_qc_align (alignment on unless turned off)."""
+    ref_pipe = pytest.importorskip("blazeseq_tpu.parallel.pipeline")
+    pb = _batch(seed=14)
+    read = b"GATTACA" * 9
+    want = ref_pipe.run_qc_align(pb, read, SANGER, **kw)
+    got = run_qc_align(pb, read, SANGER, device="cpu", **kw)
+    _assert_results_equal(want, got)
+    assert (got.nw_scores.numpy() != 0).any() == kw.get("with_alignment",
+                                                        True)
+
+
+def test_run_qc_align_refusals():
+    pb = _batch(seed=15)
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        run_qc_align(pb, b"ACGT", SANGER, mesh=object(), device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run_qc_align(pb, b"ACGT", SANGER)

@@ -172,10 +172,11 @@ CORPORA = ["clean_multichunk", "nonuniform", "gzip", "gzip_nonuniform",
            "ragged_len_peek_miss"]
 # the tiers each corpus of CORPORA takes (those with a nonzero count):
 # semi for one read length with ids of varying width, ragged for mixed
-# lengths, host only for invalid chunks, partial tails and gzip
+# lengths, host only for invalid chunks and partial tails; gzip input runs
+# the stream tiers (uniform, or ragged for mixed lengths)
 TIERS = {
     "clean_multichunk": {"uniform"}, "nonuniform": {"ragged"},
-    "gzip": {"host"}, "gzip_nonuniform": {"host"},
+    "gzip": {"uniform"}, "gzip_nonuniform": {"ragged"},
     "trailing_partial": {"uniform", "host"}, "long_reads": {"uniform"},
     "empty": set(), "binned_peek": {"uniform"},
     "binned_overflow": {"uniform"}, "full_range": {"uniform"},
