@@ -54,6 +54,12 @@ _SIGNATURES = {
     # seq, lengths, ref, scores, B, Lq, Lr, stream
     "bs_nw_scores": (_P, _P, _P, _P, _LL, _I, _I, _P),
     "bs_nw_smem_bytes": (_I, _I),
+    # seq, lengths, ref, scores, B, Lq, Lr, mode, match, mismatch, gap,
+    # gap_open, gap_extend, stream
+    "bs_nw_variant_scores": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _P),
+    # Lq, Lr, mode
+    "bs_nw_variant_smem_bytes": (_I, _I, _I),
     # chunk, nl, at, plus, counts, rows, max_blocks, stream
     "bs_structural_bitmaps": (_P, _P, _P, _P, _P, _LL, _I, _P),
     # chunk, status, n_valid, tile, width, q_lo, q_hi, offset, check_ascii,

@@ -3,9 +3,11 @@ of blazeseq_tpu/models/aligner.py).
 
 Padded batches go to the device, each read is scored against the
 reference, and `verify_batch` holds the scores against the numpy scalar
-twins. mode="global" without `gap_open` runs the Needleman-Wunsch kernel
-(ops/nw.py::nw_scores); the local, semi-global and affine-gap modes run
-their torch wavefronts.
+twins. On the card, mode="global" without `gap_open` runs the
+Needleman-Wunsch kernel (ops/nw.py::nw_scores) and the local, semi-global
+and affine-gap modes run csrc/nw.cu's variant kernel
+(ops/nw.py::nw_variant_scores); on the CPU each runs its plain torch
+version.
 """
 
 from __future__ import annotations
@@ -44,9 +46,11 @@ class NWAligner:
     base costs -1); a gap_open (e.g. -3) switches to affine gaps, where a
     length-k gap costs gap_open + (k-1) * gap_extend.
 
-    `device` follows QCModel: "cuda" (the default) raises without CUDA,
-    "cpu" runs the plain torch versions and must be asked for by name. The
-    reference is uploaded once, here."""
+    Every mode runs a hand-written kernel on the card (the NW kernel for
+    global linear scores, the variant kernel for the other five). `device`
+    follows QCModel: "cuda" (the default) raises without CUDA, "cpu" runs
+    the plain torch versions and must be asked for by name. The reference
+    is uploaded once, here."""
 
     def __init__(self, reference: bytes, max_query_len: int = MAX_QUERY_LEN,
                  mode: str = "global", gap_open: Optional[int] = None,

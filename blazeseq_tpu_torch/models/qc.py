@@ -813,8 +813,9 @@ class QCModel:
             self._run_ragged_stream(
                 b"", _ChainedReader(b"".join(rest), reader), chunk_mb, acc)
         elif buf is not None and fill:
-            self._host_consume(self._parser(MemoryReader(bytes(buf[:fill]))),
-                               acc)
+            # the partial tail, chained to the stream as on the other tiers
+            self._host_consume(self._parser(
+                _ChainedReader(bytes(buf[:fill]), reader)), acc)
 
     def _run_ragged_stream(self, head: bytes, reader, chunk_mb: int,
                            acc) -> None:

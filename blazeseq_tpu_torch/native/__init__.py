@@ -896,14 +896,18 @@ def gather_padded(window: np.ndarray, offsets: np.ndarray, width: int,
         return seq, qual, lengths
     true_lens = offsets[:, 2] - offsets[:, 1] - 1
     lens = np.minimum(true_lens, width)
+    # the quality copy stops at the record's end (a last record without its
+    # newline may have a short quality line), as in bs_gather_padded
+    qlens = np.clip(np.minimum(offsets[:, 4] - offsets[:, 3], lens), 0, None)
     for i in range(nrec):
         s, q, L = int(offsets[i, 1]), int(offsets[i, 3]), int(lens[i])
+        QL = int(qlens[i])
         seq[i, :L] = window[s : s + L]
-        qual[i, :L] = window[q : q + L]
+        qual[i, :QL] = window[q : q + QL]
         # zero the row padding explicitly: `out=` buffers (reuse pools) carry
         # stale bytes from the previous batch
         seq[i, L:] = 0
-        qual[i, L:] = 0
+        qual[i, QL:] = 0
     lengths[:nrec] = true_lens
     return seq, qual, lengths
 

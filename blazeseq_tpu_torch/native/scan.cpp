@@ -1218,7 +1218,10 @@ int64_t bs_scan_gather_soa(const uint8_t* buf, int64_t n, int64_t start,
 // Gather directly into the padded [nrec, width] device layout (rows
 // zero-padded, reads clamped to width). Writes per-record lengths (true).
 // This is the host->HBM feed fast path: one memcpy per line, no intermediate
-// flat SoA.
+// flat SoA. The quality copy stops at the record's end (rec[4]) and the rest
+// of its row is zero: a last record without its final newline may have a
+// quality line shorter than its sequence, and the bytes past it are not the
+// record's.
 void bs_gather_padded(const uint8_t* buf, const int64_t* offsets, int64_t nrec,
                       int64_t width, uint8_t* seq_out, uint8_t* qual_out,
                       int32_t* len_out) {
@@ -1229,12 +1232,15 @@ void bs_gather_padded(const uint8_t* buf, const int64_t* offsets, int64_t nrec,
     const int64_t q = rec[3];
     const int64_t true_len = p - s - 1;
     int64_t len = true_len > width ? width : true_len;
+    int64_t qlen = rec[4] - q;
+    if (qlen > len) qlen = len;
+    if (qlen < 0) qlen = 0;
     uint8_t* srow = seq_out + i * width;
     uint8_t* qrow = qual_out + i * width;
     std::memcpy(srow, buf + s, (size_t)len);
-    std::memcpy(qrow, buf + q, (size_t)len);
+    std::memcpy(qrow, buf + q, (size_t)qlen);
     std::memset(srow + len, 0, (size_t)(width - len));
-    std::memset(qrow + len, 0, (size_t)(width - len));
+    std::memset(qrow + qlen, 0, (size_t)(width - qlen));
     len_out[i] = (int32_t)true_len;
   }
 }

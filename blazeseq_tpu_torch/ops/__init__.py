@@ -5,7 +5,9 @@ The names are the reference's (blazeseq_tpu/ops/__init__.py) for every
 ported module. The reference's `*_pallas` / `*_xla` pairs become one
 dispatching op and its plain torch version: `validate_decode` /
 `validate_decode_torch`, `nw_scores` / `nw_scores_torch`, and the XLA-only
-alignment variants drop the suffix (`sw_scores`, `nw_affine_scores`, ...).
+alignment variants drop the suffix (`sw_scores`, `nw_affine_scores`, ...)
+and dispatch to csrc/nw.cu's variant kernel beside their plain versions
+(`sw_scores_torch`, ...; `nw_variant_scores` counts their launches).
 `ragged_qc` (XLA code in the reference) gets a hand-written kernel too, and
 `ragged_qc_torch` beside it. `use_interpret` is a TPU-only knob and is not
 ported.
@@ -20,11 +22,14 @@ from .demux import (demultiplex_counts, demultiplex_to_writers, demux_assign,
 from .kmer import kmer_counts, kmer_counts_cpu
 from .merge import MergeResult, merge_pairs, merge_pairs_host
 from .nw import (needleman_wunsch_affine_cpu, needleman_wunsch_cpu,
-                 nw_affine_scores, nw_scores, nw_scores_torch,
-                 nw_semiglobal_affine_scores, nw_semiglobal_scores,
+                 nw_affine_scores, nw_affine_scores_torch, nw_scores,
+                 nw_scores_torch, nw_semiglobal_affine_scores,
+                 nw_semiglobal_affine_scores_torch, nw_semiglobal_scores,
+                 nw_semiglobal_scores_torch, nw_variant_scores,
                  semiglobal_affine_cpu, semiglobal_cpu,
                  smith_waterman_affine_cpu, smith_waterman_cpu,
-                 sw_affine_scores, sw_scores)
+                 sw_affine_scores, sw_affine_scores_torch, sw_scores,
+                 sw_scores_torch)
 from .ragged_qc import RaggedQC, ragged_qc, ragged_qc_torch
 from .raw_stats import RawStreamQC, raw_stream_qc
 from .scan import (count_records_device, gather_padded_device,

@@ -10,9 +10,14 @@ dp[0][j] = -j, dp[i][0] = -i, and a read's score at dp[len][Lr]:
 * `nw_scores_torch` is the plain torch version: the anti-diagonal wavefront
   of the reference's `nw_scores_xla`, D = Lq + Lr steps over [B, Lq + 1].
 
-The local (Smith-Waterman), affine-gap (Gotoh) and semi-global variants had
-no Pallas kernel in the reference; they are its wavefronts in torch ops.
-The numpy scalar twins are copies of the reference's, for validation.
+The local (Smith-Waterman), semi-global and affine-gap (Gotoh) variants,
+which the reference writes as XLA wavefronts with no Pallas kernel, dispatch
+the same way: `sw_scores`, `nw_semiglobal_scores`, `nw_affine_scores`,
+`sw_affine_scores` and `nw_semiglobal_affine_scores` run their plain torch
+versions (`*_torch`, the reference's wavefronts in torch ops) on CPU
+tensors and csrc/nw.cu's variant kernel on CUDA tensors, every mode counted
+in `nw_variant_scores.launches`; any other device raises. The numpy scalar
+twins are copies of the reference's, for validation.
 
 Reads are a padded u8[B, Lq] batch with int32 lengths (<= Lq; the callers
 clamp); the reference is a u8[Lr] tensor with Lr >= 1. A read's score
@@ -237,10 +242,10 @@ def nw_scores_torch(seq, lengths, ref, match: int = 1, mismatch: int = -1,
     return score
 
 
-def sw_scores(seq, lengths, ref, match: int = 1, mismatch: int = -1,
-              gap: int = -1):
-    """Batched Smith-Waterman (local) scores, i32[B]: cells clamp at 0 and
-    the score is the running max over valid cells (0 for empty reads)."""
+def sw_scores_torch(seq, lengths, ref, match: int = 1, mismatch: int = -1,
+                    gap: int = -1):
+    """Plain torch version of `sw_scores`: the reference's sw_scores_xla
+    wavefront."""
     w = _Wavefront(seq, lengths, ref)
     prev1 = w.full(0)
     prev2 = w.full(0)
@@ -257,10 +262,11 @@ def sw_scores(seq, lengths, ref, match: int = 1, mismatch: int = -1,
     return best
 
 
-def nw_affine_scores(seq, lengths, ref, match: int = 1, mismatch: int = -1,
-                     gap_open: int = -3, gap_extend: int = -1):
-    """Batched global affine-gap (Gotoh) scores, i32[B]: a length-k gap
-    costs gap_open + (k-1) * gap_extend."""
+def nw_affine_scores_torch(seq, lengths, ref, match: int = 1,
+                           mismatch: int = -1, gap_open: int = -3,
+                           gap_extend: int = -1):
+    """Plain torch version of `nw_affine_scores`: the reference's
+    nw_affine_scores_xla wavefront."""
     w = _Wavefront(seq, lengths, ref)
     go, ge = gap_open, gap_extend
     target_d = w.lengths + w.Lr
@@ -284,9 +290,11 @@ def nw_affine_scores(seq, lengths, ref, match: int = 1, mismatch: int = -1,
     return score
 
 
-def sw_affine_scores(seq, lengths, ref, match: int = 1, mismatch: int = -1,
-                     gap_open: int = -3, gap_extend: int = -1):
-    """Batched local affine-gap (SW-Gotoh) scores, i32[B] (0 floor)."""
+def sw_affine_scores_torch(seq, lengths, ref, match: int = 1,
+                           mismatch: int = -1, gap_open: int = -3,
+                           gap_extend: int = -1):
+    """Plain torch version of `sw_affine_scores`: the reference's
+    sw_affine_scores_xla wavefront."""
     w = _Wavefront(seq, lengths, ref)
     go, ge = gap_open, gap_extend
     h1, h2 = w.full(0), w.full(0)
@@ -308,10 +316,10 @@ def sw_affine_scores(seq, lengths, ref, match: int = 1, mismatch: int = -1,
     return best
 
 
-def nw_semiglobal_scores(seq, lengths, ref, match: int = 1,
-                         mismatch: int = -1, gap: int = -1):
-    """Batched semi-global scores, i32[B]: the whole read aligns, leading
-    and trailing reference bases are free (0 for empty reads)."""
+def nw_semiglobal_scores_torch(seq, lengths, ref, match: int = 1,
+                               mismatch: int = -1, gap: int = -1):
+    """Plain torch version of `nw_semiglobal_scores`: the reference's
+    nw_semiglobal_scores_xla wavefront."""
     w = _Wavefront(seq, lengths, ref)
     prev1 = w.full(0)
     prev2 = w.full(0)
@@ -328,10 +336,11 @@ def nw_semiglobal_scores(seq, lengths, ref, match: int = 1,
     return torch.where(w.lengths == 0, 0, best)
 
 
-def nw_semiglobal_affine_scores(seq, lengths, ref, match: int = 1,
-                                mismatch: int = -1, gap_open: int = -3,
-                                gap_extend: int = -1):
-    """Batched semi-global affine-gap scores, i32[B]."""
+def nw_semiglobal_affine_scores_torch(seq, lengths, ref, match: int = 1,
+                                      mismatch: int = -1, gap_open: int = -3,
+                                      gap_extend: int = -1):
+    """Plain torch version of `nw_semiglobal_affine_scores`: the
+    reference's nw_semiglobal_affine_scores_xla wavefront."""
     w = _Wavefront(seq, lengths, ref)
     go, ge = gap_open, gap_extend
     m1 = torch.where(w.i_idx == 0, 0, w.full(NEG))
@@ -357,24 +366,24 @@ def nw_semiglobal_affine_scores(seq, lengths, ref, match: int = 1,
 
 # ---------------------------------------------------------------- kernel
 
-def _check_inputs(seq, lengths, ref):
+def _check_inputs(seq, lengths, ref, what="nw_scores"):
     for name, t, dt in (("seq", seq, torch.uint8),
                         ("lengths", lengths, torch.int32),
                         ("ref", ref, torch.uint8)):
         if not t.is_cuda:
-            raise ValueError("nw_scores: %s is not on a CUDA device (got %s)"
-                             % (name, t.device))
+            raise ValueError("%s: %s is not on a CUDA device (got %s)"
+                             % (what, name, t.device))
         if t.dtype != dt:
-            raise TypeError("nw_scores: %s must be %s, got %s"
-                            % (name, dt, t.dtype))
+            raise TypeError("%s: %s must be %s, got %s"
+                            % (what, name, dt, t.dtype))
         if not t.is_contiguous():
-            raise ValueError("nw_scores: %s must be contiguous" % name)
+            raise ValueError("%s: %s must be contiguous" % (what, name))
     if seq.dim() != 2 or lengths.shape != (seq.shape[0],):
-        raise ValueError("nw_scores: seq must be [B, Lq] and lengths [B], "
-                         "got %s and %s" % (tuple(seq.shape),
+        raise ValueError("%s: seq must be [B, Lq] and lengths [B], "
+                         "got %s and %s" % (what, tuple(seq.shape),
                                             tuple(lengths.shape)))
     if not (seq.device == lengths.device == ref.device):
-        raise ValueError("nw_scores: inputs on different devices")
+        raise ValueError("%s: inputs on different devices" % what)
 
 
 def _nw_scores_cuda(seq, lengths, ref):
@@ -410,3 +419,112 @@ def nw_scores(seq, lengths, ref):
 
 
 nw_scores.launches = 0
+
+
+# ---------------------------------------------------------------- variants
+
+# mode: (its number in csrc/nw.cu, the plain version's name, affine gaps)
+VARIANT_MODES = {
+    "local": (0, "sw_scores_torch", False),
+    "semiglobal": (1, "nw_semiglobal_scores_torch", False),
+    "affine": (2, "nw_affine_scores_torch", True),
+    "local_affine": (3, "sw_affine_scores_torch", True),
+    "semiglobal_affine": (4, "nw_semiglobal_affine_scores_torch", True),
+}
+
+
+def _nw_variant_cuda(mode, seq, lengths, ref, match, mismatch, gap,
+                     gap_open, gap_extend):
+    _check_inputs(seq, lengths, ref, "nw_variant_scores")
+    lib = _kernels.load()
+    B, Lq = seq.shape
+    Lr = int(ref.shape[0])
+    number = VARIANT_MODES[mode][0]
+    if lib.bs_nw_variant_smem_bytes(Lq, Lr, number) > _kernels.MAX_SMEM:
+        raise ValueError("nw_variant_scores: reads of width %d against a "
+                         "%d-byte reference exceed the kernel's shared "
+                         "memory" % (Lq, Lr))
+    scores = torch.empty(B, dtype=torch.int32, device=seq.device)
+    with torch.cuda.device(seq.device):
+        err = lib.bs_nw_variant_scores(
+            seq.data_ptr(), lengths.data_ptr(), ref.data_ptr(),
+            scores.data_ptr(), B, Lq, Lr, number, match, mismatch, gap,
+            gap_open, gap_extend, _kernels.stream_ptr(seq.device))
+    _kernels.check(err, "bs_nw_variant_scores")
+    nw_variant_scores.launches += 1
+    return scores
+
+
+def nw_variant_scores(seq, lengths, ref, mode: str, match: int = 1,
+                      mismatch: int = -1, gap: int = -1, gap_open: int = -3,
+                      gap_extend: int = -1):
+    """Scores of a padded batch against `ref` in one of VARIANT_MODES,
+    i32[B] (the linear modes read `gap`, the affine ones `gap_open` and
+    `gap_extend`). CPU tensors run the mode's plain torch version; CUDA
+    tensors run csrc/nw.cu's variant kernel (counted in
+    `nw_variant_scores.launches`) or raise. An empty reference raises
+    ValueError."""
+    if mode not in VARIANT_MODES:
+        raise ValueError("nw_variant_scores: unknown mode %r" % (mode,))
+    _check_ref(ref)
+    if seq.is_cuda:
+        return _nw_variant_cuda(mode, seq, lengths, ref, match, mismatch,
+                                gap, gap_open, gap_extend)
+    if seq.device.type != "cpu":
+        raise ValueError("nw_variant_scores: unsupported device %s"
+                         % seq.device)
+    _, plain, affine = VARIANT_MODES[mode]
+    kw = (dict(gap_open=gap_open, gap_extend=gap_extend) if affine
+          else dict(gap=gap))
+    return globals()[plain](seq, lengths, ref, match=match,
+                            mismatch=mismatch, **kw)
+
+
+nw_variant_scores.launches = 0
+
+
+def sw_scores(seq, lengths, ref, match: int = 1, mismatch: int = -1,
+              gap: int = -1):
+    """Batched Smith-Waterman (local) scores, i32[B]: cells clamp at 0 and
+    the score is the running max over valid cells (0 for empty reads).
+    Dispatches as `nw_variant_scores`."""
+    return nw_variant_scores(seq, lengths, ref, "local", match=match,
+                             mismatch=mismatch, gap=gap)
+
+
+def nw_semiglobal_scores(seq, lengths, ref, match: int = 1,
+                         mismatch: int = -1, gap: int = -1):
+    """Batched semi-global scores, i32[B]: the whole read aligns, leading
+    and trailing reference bases are free (0 for empty reads). Dispatches
+    as `nw_variant_scores`."""
+    return nw_variant_scores(seq, lengths, ref, "semiglobal", match=match,
+                             mismatch=mismatch, gap=gap)
+
+
+def nw_affine_scores(seq, lengths, ref, match: int = 1, mismatch: int = -1,
+                     gap_open: int = -3, gap_extend: int = -1):
+    """Batched global affine-gap (Gotoh) scores, i32[B]: a length-k gap
+    costs gap_open + (k-1) * gap_extend. Dispatches as
+    `nw_variant_scores`."""
+    return nw_variant_scores(seq, lengths, ref, "affine", match=match,
+                             mismatch=mismatch, gap_open=gap_open,
+                             gap_extend=gap_extend)
+
+
+def sw_affine_scores(seq, lengths, ref, match: int = 1, mismatch: int = -1,
+                     gap_open: int = -3, gap_extend: int = -1):
+    """Batched local affine-gap (SW-Gotoh) scores, i32[B] (0 floor).
+    Dispatches as `nw_variant_scores`."""
+    return nw_variant_scores(seq, lengths, ref, "local_affine", match=match,
+                             mismatch=mismatch, gap_open=gap_open,
+                             gap_extend=gap_extend)
+
+
+def nw_semiglobal_affine_scores(seq, lengths, ref, match: int = 1,
+                                mismatch: int = -1, gap_open: int = -3,
+                                gap_extend: int = -1):
+    """Batched semi-global affine-gap scores, i32[B]. Dispatches as
+    `nw_variant_scores`."""
+    return nw_variant_scores(seq, lengths, ref, "semiglobal_affine",
+                             match=match, mismatch=mismatch,
+                             gap_open=gap_open, gap_extend=gap_extend)

@@ -5,8 +5,11 @@
 Builds the port's CUDA kernels from blazeseq_tpu_torch/csrc (one nvcc per
 source, all started together), holds each kernel against its plain torch
 version on the card (the ragged kernels on their edge cases and a 256 MiB
-chunk of the ragged corpus below), then drives the port's paths, each with
-the launch counts set to 0 just before it and read just after:
+chunk of the ragged corpus below; the alignment variant kernel in each of
+its five modes at the example's and the QC batch's shapes and on edge
+batches, with two score sets), then drives the port's paths, each with
+the launch counts set to 0 just before it and read just after, and with
+no torch wavefront of ops/nw.py allowed a CUDA tensor:
 
 * QCModel(device="cuda").run_file_device over a 2 GiB uniform FASTQ file
   and a 1 GiB quality-binned one, each checked panel by panel against an
@@ -23,7 +26,9 @@ the launch counts set to 0 just before it and read just after:
 * its fallback route (a mid-file quality error and a trailing partial
   record) against the same call on the CPU;
 * NWAligner on 1M reads x 40 bp against a 40 bp reference in batches of
-  65,536, the first 2,000 scores against the numpy twin;
+  65,536, the first 2,000 scores against the numpy twin; then the same in
+  each of its five other mode x gap combinations (local, semi-global, and
+  the three affine-gap forms: csrc/nw.cu's variant kernel);
 * QCModel(align_to=..., adapters, duplicates, quartiles).run_file on 1M
   reads x 150 bp: core panels against the oracle, 2,000 alignment scores
   against the numpy twin, and every panel of a 20,000-read prefix against
@@ -148,6 +153,25 @@ BOOST_CLOCK_HZ = 1.98e9
 # runs: a compare and a select for the match term, one DPX add-max
 # (__viaddmax_s32) for max(diag + s, up) and one max with the left cell
 NW_OPS_PER_CELL = 4
+# the variant kernel's int32 operations per DP cell, counted from
+# csrc/nw.cu::nw_variant_kernel's inner loop of each mode: the match term's
+# compare and select in every mode; then local: an add, a DPX add-max and a
+# DPX add-max-relu, and the max of the running max; semiglobal: an add and
+# two add-max; affine and semiglobal_affine: the diagonal add, an add and
+# an add-max for each of the two gap states, one DPX three-way max;
+# local_affine: an add and an add-max for each gap state, an add-max, a
+# DPX max-relu, and the running max
+NW_VARIANT_OPS_PER_CELL = dict(local=6, semiglobal=5, affine=8,
+                               local_affine=9, semiglobal_affine=8)
+# NWAligner's five variant combinations (mode, gap_open) by the name of
+# their kernel mode
+NW_VARIANTS = dict(local=("local", None), semiglobal=("semiglobal", None),
+                   affine=("global", -3), local_affine=("local", -3),
+                   semiglobal_affine=("semiglobal", -3))
+# the variant kernel's score sets: the defaults, and others
+NW_VARIANT_SCORES = (
+    dict(match=1, mismatch=-1, gap=-1, gap_open=-3, gap_extend=-1),
+    dict(match=1, mismatch=-1, gap=-2, gap_open=-5, gap_extend=-2))
 
 
 def log(*a):
@@ -1282,6 +1306,210 @@ def phase_kernel_nw(seed):
                 bound_ms=ex["bound_ms"], bound_by=ex["bound_by"]), times
 
 
+_NW_CORPUS = []
+
+
+def nw_corpus():
+    """The aligner paths' 1M x 40 bp FASTQ bytes, made at first use."""
+    import blazeseq_tpu_torch as bt
+
+    if not _NW_CORPUS:
+        t0 = time.perf_counter()
+        _NW_CORPUS.append(bytes(bt.generate_synthetic_fastq_buffer(
+            NW_READS, NW_READ_LEN, NW_READ_LEN, 2, 40, "sanger")))
+        log("aligner corpus: %d reads x %d bp (%d bytes) made in %.1f s"
+            % (NW_READS, NW_READ_LEN, len(_NW_CORPUS[0]),
+               time.perf_counter() - t0))
+    return _NW_CORPUS[0]
+
+
+def _variant_cells(mode, lengths, Lq, Lr):
+    """The DP cells a variant mode's batch needs: each read's rows (the
+    local modes take min(len, Lq) rows; the others a length in [1, Lq],
+    and none for the lengths they score without a DP) times Lr."""
+    L = lengths.astype(np.int64)
+    if mode.startswith("local"):
+        rows = np.clip(L, 0, Lq)
+    else:
+        rows = np.where((L >= 1) & (L <= Lq), L, 0)
+    return int(rows.sum()) * Lr
+
+
+def _variant_twin(mode, q, r, sc):
+    """The numpy twin of a variant mode's score of q against r."""
+    from blazeseq_tpu_torch.ops import nw
+
+    twin = dict(local=nw.smith_waterman_cpu, semiglobal=nw.semiglobal_cpu,
+                affine=nw.needleman_wunsch_affine_cpu,
+                local_affine=nw.smith_waterman_affine_cpu,
+                semiglobal_affine=nw.semiglobal_affine_cpu)[mode]
+    kw = (dict(gap_open=sc["gap_open"], gap_extend=sc["gap_extend"])
+          if "affine" in mode else dict(gap=sc["gap"]))
+    return twin(q, r, match=sc["match"], mismatch=sc["mismatch"], **kw)
+
+
+def phase_kernel_nw_variants(seed):
+    """The alignment variant kernel against its plain torch versions on the
+    card, exact on every row, in each of its five modes: at the upstream
+    example's shape (65,536 x 64 vs 40 bp) and the QC batch (4,096 x 256
+    vs 150 bp), timed, with rows of each against the numpy twins; and on
+    edge batches of 1,003 rows: references of 1, 31, 32, 33, 1,000 and
+    2,100 bytes (one tile or several; 2, 4 and 32 lanes a read), rows of
+    64 and 100 bytes, lengths 0, 1, Lq and out of range, bytes 0xFE and
+    0xFF; each shape with both score sets of NW_VARIANT_SCORES. Returns
+    the kernels-line fields (ms, plain_ms and the bound of the five modes'
+    calls together at the example's shape) and each mode's timings."""
+    import torch
+
+    from blazeseq_tpu_torch.ops import nw
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng([seed, 11])
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    edge = np.frombuffer(b"ACGT\xfe\xff", np.uint8)
+    cases = [("example", NW_BATCH, 64, len(NW_REFERENCE), NW_READ_LEN, acgt),
+             ("qc_batch", 4096, 256, READ_LEN, READ_LEN, acgt)]
+    cases += [("edge_ref_%d_w%d" % (lr, lq), 1003, lq, lr, None, edge)
+              for lr in (1, 31, 32, 33, 1000, 2100) for lq in (64, 100)]
+    err = 0
+    modes = {m: {} for m in nw.VARIANT_MODES}
+    totals = dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0)
+    for label, B, Lq, Lr, read_len, alpha in cases:
+        seq = rng.choice(alpha, (B, Lq))
+        ref = rng.choice(alpha, Lr)
+        lengths = (rng.integers(0, Lq + 1, B) if read_len is None
+                   else np.full(B, read_len)).astype(np.int32)
+        lengths[:8] = 0
+        lengths[8:16] = Lq
+        lengths[17:24] = 1
+        if read_len is None:
+            lengths[24:28] = (-1, Lq + 1, -Lr - 1, Lq + Lr + 1)
+        d = [torch.from_numpy(a).cuda() for a in (seq, lengths, ref)]
+        for mode, (_, plain, affine) in nw.VARIANT_MODES.items():
+            for k, sc in enumerate(NW_VARIANT_SCORES):
+                kw = dict(match=sc["match"], mismatch=sc["mismatch"])
+                kw.update(dict(gap_open=sc["gap_open"],
+                               gap_extend=sc["gap_extend"]) if affine
+                          else dict(gap=sc["gap"]))
+                got = nw.nw_variant_scores(*d, mode, **sc)
+                want = getattr(nw, plain)(*d, **kw)
+                torch.cuda.synchronize()
+                err = max(err, max_abs_diff(
+                    (got,), (want,), "variant kernel, %s, %s, scores %d"
+                    % (mode, label, k)))
+                if read_len is None:
+                    continue
+                host = got.cpu().numpy()
+                for b in (0, 8, 17, B - 1):
+                    twin = _variant_twin(mode, seq[b, :lengths[b]].tobytes(),
+                                         ref.tobytes(), sc)
+                    if host[b] != twin:
+                        raise AssertionError(
+                            "variant kernel, %s, %s: row %d scores %d, the "
+                            "numpy twin %d" % (mode, label, b, host[b],
+                                               twin))
+            if read_len is None:
+                continue
+            ms = cuda_ms(lambda: nw.nw_variant_scores(*d, mode))
+            plain_ms = cuda_ms(lambda: getattr(nw, plain)(*d), inner=1,
+                               trials=3)
+            cells = _variant_cells(mode, lengths, Lq, Lr)
+            ops = NW_VARIANT_OPS_PER_CELL[mode] * cells
+            n_bytes = nbytes(*d, got)
+            bnd = bound(n_bytes, ops)
+            modes[mode][label] = dict(B=B, Lq=Lq, Lr=Lr, ms=ms,
+                                      plain_ms=plain_ms, cells=cells,
+                                      share=bnd["bound_ms"] / ms, **bnd)
+            if label == "example":
+                totals["ms"] += ms
+                totals["plain_ms"] += plain_ms
+                totals["bytes"] += n_bytes
+                totals["ops"] += ops
+            log("variant kernel %s [%d, %d] vs Lr=%d: kernel %.4f ms, plain "
+                "%.3f ms, bound %.4f ms (%s, %d cells), %.1f%% of it" % (
+                    mode, B, Lq, Lr, ms, plain_ms, bnd["bound_ms"],
+                    bnd["bound_by"], cells, 100 * bnd["bound_ms"] / ms))
+    log("variant kernel == plain in %d modes on %d shapes, %d score sets "
+        "(%.1f s)" % (len(modes), len(cases), len(NW_VARIANT_SCORES),
+                      time.perf_counter() - t0))
+    # the five modes' calls at the example's shape, as one unit of work
+    bnd = bound(totals["bytes"], totals["ops"])
+    return dict(max_abs_err=err, ms=totals["ms"],
+                plain_ms=totals["plain_ms"], **bnd), modes
+
+
+def _twin_chunk(head, n, mode, gap_open):
+    """NWAligner.score_cpu (the numpy twins) in one mode on the n records
+    of the FASTQ bytes `head`; runs in a process of its own."""
+    import blazeseq_tpu_torch as bt
+    from blazeseq_tpu_torch import NWAligner
+
+    batch = bt.FastqParser(bt.MemoryReader(head)).next_batch(n)
+    return NWAligner(NW_REFERENCE, max_query_len=64, mode=mode,
+                     gap_open=gap_open, device="cpu").score_cpu(batch)
+
+
+def phase_aligner_variants():
+    """NWAligner in its five variant combinations (local, semi-global, and
+    global, local and semi-global with affine gaps, gap_open -3) at the
+    upstream example's scale, as the NWAligner path: host parse into
+    padded batches of 65,536, scores on the card (the variant kernel),
+    alignments/s of each; then the first TWIN_SAMPLE scores of each
+    against score_cpu, computed in parallel processes (the affine twins
+    are Python loops over every cell)."""
+    import multiprocessing
+
+    import torch
+
+    import blazeseq_tpu_torch as bt
+    from blazeseq_tpu_torch import NWAligner
+
+    buf = nw_corpus()
+    out, scores = {}, {}
+    for label, (mode, gap_open) in NW_VARIANTS.items():
+        aligner = NWAligner(NW_REFERENCE, max_query_len=64, mode=mode,
+                            gap_open=gap_open, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parts = [aligner.score_padded(pb)
+                 for pb in bt.FastqParser(bt.MemoryReader(buf))
+                 .padded_batches(NW_BATCH, max_len=64,
+                                 pad_records_to=NW_BATCH)]
+        wall = time.perf_counter() - t0
+        got = np.concatenate(parts)
+        if got.shape != (NW_READS,) or got.dtype != np.int32:
+            raise AssertionError("aligner %s: %s scores of %s"
+                                 % (label, got.shape, got.dtype))
+        scores[label] = got
+        out[label] = dict(wall_s=wall, alignments_per_s=NW_READS / wall)
+        log("aligner %s (mode %s, gap_open %s): %d alignments in %.3f s, "
+            "%.0f alignments/s" % (label, mode, gap_open, NW_READS, wall,
+                                   NW_READS / wall))
+    # the first TWIN_SAMPLE records in four runs of whole records
+    t0 = time.perf_counter()
+    head = np.frombuffer(buf, np.uint8,
+                         min(len(buf), TWIN_SAMPLE * (2 * NW_READ_LEN + 200)))
+    nl = np.flatnonzero(head == 10)
+    step = TWIN_SAMPLE // 4
+    ends = [0] + [int(nl[4 * k - 1]) + 1
+                  for k in range(step, TWIN_SAMPLE + 1, step)]
+    ctx = multiprocessing.get_context("spawn")
+    with cf.ProcessPoolExecutor(max(1, min(7, os.cpu_count() or 1)),
+                                mp_context=ctx) as ex:
+        jobs = {label: [ex.submit(_twin_chunk, buf[lo:hi], step, mode, go)
+                        for lo, hi in zip(ends, ends[1:])]
+                for label, (mode, go) in NW_VARIANTS.items()}
+        for label, futs in jobs.items():
+            twin = np.concatenate([f.result() for f in futs])
+            if not np.array_equal(scores[label][:TWIN_SAMPLE], twin):
+                raise AssertionError("aligner %s: scores differ from the "
+                                     "numpy twin" % label)
+    log("aligner variants: the first %d scores of each of the %d == numpy "
+        "twin (%.1f s)" % (TWIN_SAMPLE, len(NW_VARIANTS),
+                           time.perf_counter() - t0))
+    return dict(reads=NW_READS, modes=out)
+
+
 def phase_aligner():
     """NWAligner end to end at the upstream nw_gpu example's scale: host
     parse into padded batches of 65,536, scores on the card, the first
@@ -1291,11 +1519,7 @@ def phase_aligner():
     import blazeseq_tpu_torch as bt
     from blazeseq_tpu_torch import NWAligner
 
-    t0 = time.perf_counter()
-    buf = bytes(bt.generate_synthetic_fastq_buffer(
-        NW_READS, NW_READ_LEN, NW_READ_LEN, 2, 40, "sanger"))
-    log("aligner corpus: %d reads x %d bp (%d bytes) made in %.1f s"
-        % (NW_READS, NW_READ_LEN, len(buf), time.perf_counter() - t0))
+    buf = nw_corpus()
     aligner = NWAligner(NW_REFERENCE, max_query_len=64, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2466,17 +2690,44 @@ def phase_mesh_ranks(seed, files, oracle, keep, ragged, tmp, kernels):
     return out
 
 
+def _no_wavefront_on_card():
+    """Wrap ops/nw.py's plain torch versions (the wavefronts) so that a
+    call with a CUDA tensor raises; returns a function that unwraps
+    them."""
+    from blazeseq_tpu_torch.ops import nw
+
+    saved = {n: getattr(nw, n) for n in ["nw_scores_torch"] + [
+        plain for _, plain, _ in nw.VARIANT_MODES.values()]}
+
+    def guard(name, fn):
+        def wrapped(seq, *a, **k):
+            if seq.is_cuda:
+                raise AssertionError("%s, a torch wavefront, ran on the card"
+                                     % name)
+            return fn(seq, *a, **k)
+        return wrapped
+
+    for name, fn in saved.items():
+        setattr(nw, name, guard(name, fn))
+    return lambda: [setattr(nw, n, fn) for n, fn in saved.items()]
+
+
 def run_path(name, fn, kernels):
-    """Drive one path with every launch count set to 0 just before it;
-    returns its result and the counts read just after. Raises when a kernel
-    of the path was never launched."""
+    """Drive one path with every launch count set to 0 just before it, and
+    no torch wavefront allowed on the card; returns its result and the
+    counts read just after. Raises when a kernel of the path was never
+    launched."""
     import torch
 
     for k in kernels.values():
         k.launches = 0
+    restore = _no_wavefront_on_card()
     t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        restore()
     wall = time.perf_counter() - t0
     got = {name_: k.launches for name_, k in kernels.items()}
     # a path whose ranks ran in processes of their own adds their counts
@@ -2490,14 +2741,15 @@ def run_path(name, fn, kernels):
 
 def _kernel_fns():
     """The wrapper of every kernel, by name; each counts its launches."""
-    from blazeseq_tpu_torch.ops.nw import nw_scores
+    from blazeseq_tpu_torch.ops.nw import nw_scores, nw_variant_scores
     from blazeseq_tpu_torch.ops.ragged_qc import ragged_qc
     from blazeseq_tpu_torch.ops.scan import structural_bitmaps
     from blazeseq_tpu_torch.ops.uniform_qc import uniform_qc
     from blazeseq_tpu_torch.ops.validate import validate_decode
 
     return dict(uniform_qc=uniform_qc, validate_decode=validate_decode,
-                nw_scores=nw_scores, structural_bitmaps=structural_bitmaps,
+                nw_scores=nw_scores, nw_variant_scores=nw_variant_scores,
+                structural_bitmaps=structural_bitmaps,
                 ragged_qc=ragged_qc)
 
 
@@ -2523,6 +2775,8 @@ def main(argv=None):
     kb = phase_kernel_b(args.seed)
     torch.cuda.synchronize()
     knw, nw_times = phase_kernel_nw(args.seed)
+    torch.cuda.synchronize()
+    kvar, var_times = phase_kernel_nw_variants(args.seed)
     torch.cuda.synchronize()
     kscan = phase_kernel_scan(args.seed)
     torch.cuda.synchronize()
@@ -2550,6 +2804,8 @@ def main(argv=None):
         ("fallback", lambda: phase_fallback(args.seed, tmp),
          ("validate_decode",)),
         ("NWAligner", phase_aligner, ("nw_scores",)),
+        ("NWAligner(variants)", phase_aligner_variants,
+         ("nw_variant_scores",)),
         ("run_file(align_to)",
          lambda: phase_align_run_file(args.seed, *align["corpus"], align),
          ("validate_decode", "nw_scores")),
@@ -2596,14 +2852,18 @@ def main(argv=None):
         shutil.rmtree(tmp, ignore_errors=True)
     log("launches on the paths, summed:", launches)
     log("NW kernel timings:", json.dumps(nw_times))
+    log("variant kernel timings:", json.dumps(var_times))
     log("ragged kernels: %.4f ms a call;" % kragged["ms"],
         json.dumps(kragged_notes))
     log("end to end:", json.dumps(e2e))
     log("total %.1f s" % (time.perf_counter() - t_start))
-    # no single PyTorch call computes any of the five functions, so none
+    # no single PyTorch call computes any of the six functions, so none
     # has a library time; kernel A has one record per shape of
-    # KERNEL_A_SHAPES. The ragged kernel replaces XLA code (no Pallas
-    # kernel): its `replaces` names the reference's ragged_qc
+    # KERNEL_A_SHAPES. The ragged and the alignment variant kernels replace
+    # XLA code (no Pallas kernel): their `replaces` name the reference's
+    # ragged_qc and its five XLA alignment variants. The variant kernel's
+    # ms, plain_ms and bound are its five modes' calls together at the
+    # example's shape, each mode's under `modes`
     print(json.dumps({"kernels": [
         dict(name="uniform_qc", route="cuda", source=KERNEL_B_SOURCE,
              replaces="blazeseq_tpu/ops/fused_qc.py:205",
@@ -2615,6 +2875,10 @@ def main(argv=None):
         dict(name="nw_scores", route="cuda", source=KERNEL_NW_SOURCE,
              replaces="blazeseq_tpu/ops/nw.py:174",
              launches=launches["nw_scores"], library_ms=None, **knw),
+        dict(name="nw_variants", route="cuda", source=KERNEL_NW_SOURCE,
+             replaces="blazeseq_tpu/ops/nw.py:240-566",
+             launches=launches["nw_variant_scores"], library_ms=None,
+             modes=var_times, **kvar),
         dict(name="structural_bitmaps", route="cuda",
              source=KERNEL_SCAN_SOURCE,
              replaces="blazeseq_tpu/ops/scan.py:78",

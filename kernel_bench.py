@@ -11,6 +11,10 @@ compare two commits on one card). Shapes:
 * NW: 65,536 reads x 64 columns of length 40 against a 40 bp reference
   (the nw_gpu example) and 4,096 x 256 of length 150 against 150 bp (the
   QC batch of `run_file(align_to)`);
+* the alignment variant kernel (`nw_variant_scores`) in each of its five
+  modes at the same two shapes, beside its plain torch version
+  (`plain_event_ms`: the wavefront's launches, timed with CUDA events); a
+  tree without it skips it;
 * kernel B: one 256 MiB chunk (760,440 records of 353 bytes) of the
   uniform corpus, and of the quality-binned one, through the raw launch
   (`_uniform_qc_raw_cuda`, without the torch epilogue);
@@ -139,6 +143,21 @@ def _one_tree(tree, seed, ragged_path=False):
             rng.choice(acgt, Lr))]
         _same((nw_ops.nw_scores(*d),), (nw_ops.nw_scores_torch(*d),), label)
         out[label] = _times(lambda: nw_ops.nw_scores(*d))
+        if hasattr(nw_ops, "nw_variant_scores"):
+            for mode, (_, plain, _) in nw_ops.VARIANT_MODES.items():
+                vlabel = "%s_%s" % (label, mode)
+                _same((nw_ops.nw_variant_scores(*d, mode),),
+                      (getattr(nw_ops, plain)(*d),), vlabel)
+                out[vlabel] = dict(
+                    _times(lambda: nw_ops.nw_variant_scores(*d, mode)),
+                    plain_event_ms=event_ms(
+                        lambda: getattr(nw_ops, plain)(*d), inner=1,
+                        trials=3),
+                    bound_ms=cs.bound(
+                        cs.nbytes(*d) + 4 * B,
+                        cs.NW_VARIANT_OPS_PER_CELL[mode]
+                        * cs._variant_cells(mode, d[1].cpu().numpy(), Lq,
+                                            Lr))["bound_ms"])
     n = (256 << 20) // cs.RS
     for label, binned in (("uniform_qc", False), ("uniform_qc_binned", True)):
         rec, _ = cs._make_block(seed, 10 ** 6, 0, n, binned)

@@ -4,8 +4,9 @@ blazeseq_tpu/models/aligner.py::NWAligner, for all six mode x gap
 combinations, on batches with reads longer than max_query_len and rows
 narrower than a read's true length. Scores are int32 and must be equal
 (np.array_equal); verify_batch must hold. The card case holds
-NWAligner(device="cuda") against the CPU one and skips where there is no
-CUDA device.
+NWAligner(device="cuda") against the CPU one and the numpy twins, with one
+launch of the NW kernel (global linear) or the variant kernel (the other
+five) a batch, and skips where there is no CUDA device.
 """
 
 import numpy as np
@@ -45,7 +46,10 @@ def test_aligner_matches_reference(mode, gap_open):
     pb = batch.to_padded(max_len=128, pad_records_to=40)
     np.testing.assert_array_equal(ref.score_padded(pb), port.score_padded(pb))
     np.testing.assert_array_equal(port.score_cpu(batch), got)
+    before = nw.nw_scores.launches, nw.nw_variant_scores.launches
     assert port.verify_batch(batch)
+    # the CPU runs the plain versions: no kernel launch is counted
+    assert (nw.nw_scores.launches, nw.nw_variant_scores.launches) == before
 
 
 @pytest.mark.parametrize("mode,gap_open", [("global", None),
@@ -89,9 +93,14 @@ def test_aligner_on_card_matches_cpu(mode, gap_open):
     batch = _batch(n=200, lo=10, hi=300)
     kw = dict(max_query_len=256, mode=mode, gap_open=gap_open)
     before = nw.nw_scores.launches
+    before_variant = nw.nw_variant_scores.launches
     got = NWAligner(REF, device="cuda", **kw).score_batch(batch)
     np.testing.assert_array_equal(
         NWAligner(REF, device="cpu", **kw).score_batch(batch), got)
-    # only global linear mode runs the kernel
-    uses_kernel = mode == "global" and gap_open is None
-    assert nw.nw_scores.launches == before + int(uses_kernel)
+    # global linear mode runs the NW kernel, the other five the variant
+    # kernel: one launch a batch, no torch wavefront on the card
+    uses_nw = mode == "global" and gap_open is None
+    assert nw.nw_scores.launches == before + int(uses_nw)
+    assert nw.nw_variant_scores.launches == before_variant + int(not uses_nw)
+    np.testing.assert_array_equal(
+        NWAligner(REF, device="cuda", **kw).score_cpu(batch), got)

@@ -684,3 +684,69 @@ def test_public_names_resolve_in_port(namespace):
     assert (MESH_NAMES <= names) == bool(namespace)
     if not namespace:
         assert port.__version__ == ref.__version__
+
+
+def _gather_case():
+    """A window of two ordinary records, then a last record whose quality
+    line stops 3 bytes short of its sequence with no final newline, then
+    bytes that are not the record's; and the offsets the parser gives them
+    (rec[4] of the last one is the end of the input)."""
+    recs = [b"@r1\nACGTACGTAC\n+\nIIIIIIIIII\n", b"@r2\nACG\n+\n#5I\n",
+            b"@r3\nACGTTGCA\n+\nABCDE"]
+    offsets, pos = [], 0
+    for r in recs:
+        nl = [i for i, c in enumerate(r) if c == 10]
+        end = nl[3] if len(nl) > 3 else len(r)
+        offsets.append([pos, pos + nl[0] + 1, pos + nl[1] + 1,
+                        pos + nl[2] + 1, pos + end])
+        pos += len(r)
+    window = np.frombuffer(b"".join(recs) + b"JJJJJJJJ", np.uint8).copy()
+    return window, np.array(offsets, np.int64)
+
+
+@pytest.mark.parametrize("impl", ["native", "numpy"])
+def test_gather_padded_stops_quality_at_record_end(impl, monkeypatch):
+    """native.gather_padded copies a record's quality only up to its end
+    (rec[4]) and zeroes the rest of the row, on the C++ gather and the
+    numpy fallback; ordinary records gather byte for byte as the
+    reference's gather does."""
+    from blazeseq_tpu import native as ref_native
+    from blazeseq_tpu_torch import native as port_native
+
+    if impl == "numpy":
+        monkeypatch.setattr(port_native, "_load", lambda: None)
+    elif port_native._load() is None:
+        pytest.skip("no C++ compiler: the native gather is not built")
+    window, offsets = _gather_case()
+    seq, qual, lengths = port_native.gather_padded(window, offsets, 12,
+                                                   pad_records_to=4)
+    assert lengths.tolist() == [10, 3, 8, 0]
+    assert qual[2].tobytes() == b"ABCDE" + bytes(7)  # not b"ABCDEJJJ"
+    assert seq[2].tobytes() == b"ACGTTGCA" + bytes(4)
+    # the ordinary records (and a width that clamps them) as before
+    for width in (12, 6):
+        want = ref_native.gather_padded(window, offsets[:2], width)
+        got = port_native.gather_padded(window, offsets[:2], width)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+    # `out=` buffers holding stale bytes are zeroed past the tail too
+    out = tuple(np.full_like(a, 0x7F) for a in (seq, qual))
+    out += (np.zeros_like(lengths),)
+    port_native.gather_padded(window, offsets, 12, out=out)
+    assert out[1][2].tobytes() == b"ABCDE" + bytes(7)
+
+
+def test_cut_quality_tail_pads_with_zeros_in_the_parser():
+    """The parser's padded batch of a file whose last quality line was cut
+    (111 of 150 bytes, no final newline): the tail row holds its 111
+    quality bytes, then zeros."""
+    buf = bytes(port.generate_synthetic_fastq_buffer(
+        12000, 150, 150, 2, 40, "sanger"))[:-40]
+    last = None
+    for pb in port.FastqParser(port.MemoryReader(buf)).padded_batches(
+            4096, max_len=256):
+        last = pb
+    row = np.asarray(last.qual)[last.n_records - 1]
+    tail = buf[buf.rindex(b"\n") + 1:]
+    assert len(tail) == 111
+    assert row[:111].tobytes() == tail and not row[111:].any()

@@ -6,8 +6,10 @@ against blazeseq_tpu/ops/nw.py.
 shapes) and against nw_scores_xla at larger ones; the five XLA-only
 variants against their JAX versions; each numpy twin against the
 reference's. Scores are integers, so every comparison is exact
-(np.array_equal). The CUDA kernel is held against the plain version on the
-card, and those cases skip where there is no CUDA device.
+(np.array_equal). The CUDA kernels (global NW and the variant kernel) are
+held against their plain versions on the card, and those cases skip where
+there is no CUDA device; the dispatchers' CPU and CUDA branches are held
+here.
 """
 
 import numpy as np
@@ -256,3 +258,125 @@ def test_wavefront_edges_on_card(Lr, Lq):
     for b in (0, 1, 2, 4, B - 3, B - 2, B - 1):
         assert host[b] == nw.needleman_wunsch_cpu(
             seq[b, :lengths[b]].tobytes(), ref.tobytes())
+
+
+# the five variant dispatchers: (name, its plain version, scores to pass)
+DISPATCHERS = [
+    ("sw_scores", "sw_scores_torch", dict(match=2, mismatch=-3, gap=-2)),
+    ("nw_semiglobal_scores", "nw_semiglobal_scores_torch",
+     dict(match=2, mismatch=-3, gap=-2)),
+    ("nw_affine_scores", "nw_affine_scores_torch",
+     dict(gap_open=-5, gap_extend=-2)),
+    ("sw_affine_scores", "sw_affine_scores_torch",
+     dict(gap_open=-5, gap_extend=-2)),
+    ("nw_semiglobal_affine_scores", "nw_semiglobal_affine_scores_torch",
+     dict(gap_open=-5, gap_extend=-2)),
+]
+DISPATCH_IDS = [name for name, _, _ in DISPATCHERS]
+
+
+@pytest.mark.parametrize("name,plain,kw", DISPATCHERS, ids=DISPATCH_IDS)
+def test_variant_dispatch_cpu_takes_the_plain_version(name, plain, kw):
+    seq, lengths, ref = _inputs(24, 48, 37, seed=len(name),
+                                alphabet=SENTINELS)
+    before = nw.nw_variant_scores.launches
+    got = _port(getattr(nw, name), seq, lengths, ref, **kw)
+    np.testing.assert_array_equal(
+        got, _port(getattr(nw, plain), seq, lengths, ref, **kw))
+    assert got.dtype == np.int32
+    assert nw.nw_variant_scores.launches == before  # no kernel on the CPU
+
+
+@pytest.mark.parametrize("name,plain,kw", DISPATCHERS, ids=DISPATCH_IDS)
+def test_variant_dispatch_refuses_other_devices(name, plain, kw):
+    seq = torch.zeros((4, 16), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        getattr(nw, name)(seq, torch.zeros(4, dtype=torch.int32,
+                                           device="meta"),
+                          torch.zeros(3, dtype=torch.uint8, device="meta"),
+                          **kw)
+
+
+@pytest.mark.parametrize("name,plain,kw", DISPATCHERS, ids=DISPATCH_IDS)
+def test_variant_cuda_dispatch_raises_when_kernels_cannot_load(
+        name, plain, kw, monkeypatch):
+    def fail():
+        raise RuntimeError("kernel library unavailable (test)")
+
+    def plain_must_not_run(*a, **k):
+        raise AssertionError("plain version reached from the CUDA branch")
+
+    monkeypatch.setattr(_kernels, "load", fail)
+    for _, other, _ in DISPATCHERS:
+        monkeypatch.setattr(nw, other, plain_must_not_run)
+    seq, lengths, ref = (torch.Tensor._make_subclass(
+        _LooksCuda, torch.from_numpy(a)) for a in _inputs(4, 16, 8, seed=2))
+    before = nw.nw_variant_scores.launches
+    with pytest.raises(RuntimeError, match="kernel library unavailable"):
+        getattr(nw, name)(seq, lengths, ref, **kw)
+    assert nw.nw_variant_scores.launches == before
+
+
+def test_variant_dispatch_refuses_unknown_mode():
+    seq, lengths, ref = (torch.from_numpy(a) for a in _inputs(4, 16, 8, 3))
+    with pytest.raises(ValueError, match="unknown mode"):
+        nw.nw_variant_scores(seq, lengths, ref, "overlap")
+
+
+# the score sets of the card cases: the defaults, and others
+VARIANT_SCORES = [dict(match=1, mismatch=-1, gap=-1, gap_open=-3,
+                       gap_extend=-1),
+                  dict(match=1, mismatch=-1, gap=-2, gap_open=-5,
+                       gap_extend=-2)]
+
+
+@pytest.mark.parametrize("Lr", [1, 31, 32, 33, 1000, 2100])
+@pytest.mark.parametrize("mode", sorted(nw.VARIANT_MODES))
+def test_variant_kernel_matches_plain_on_card(mode, Lr):
+    """The variant kernel against its plain version, every row equal, at
+    reference lengths that change its lanes, strips and tiles, rows of 64
+    and 100 bytes, lengths 0, 1, Lq and out of range, the sentinel bytes,
+    and two score sets; a shape above the card's shared memory raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    _, plain, affine = nw.VARIANT_MODES[mode]
+    for Lq in (64, 100):
+        B = 1003
+        seq, lengths, ref = _inputs(B, Lq, Lr, seed=Lr + Lq,
+                                    alphabet=SENTINELS)
+        lengths[2:6] = (1, 1, Lq, Lq)
+        lengths[6:10] = (-1, Lq + 1, -Lr - 1, Lq + Lr + 1)
+        lengths[-3:] = (0, 1, Lq)
+        d = [torch.from_numpy(a).cuda() for a in (seq, lengths, ref)]
+        for sc in VARIANT_SCORES:
+            kw = dict(match=sc["match"], mismatch=sc["mismatch"])
+            kw.update(dict(gap_open=sc["gap_open"],
+                           gap_extend=sc["gap_extend"]) if affine
+                      else dict(gap=sc["gap"]))
+            before = nw.nw_variant_scores.launches
+            got = nw.nw_variant_scores(*d, mode, **sc)
+            want = getattr(nw, plain)(*d, **kw)
+            torch.cuda.synchronize()
+            assert nw.nw_variant_scores.launches == before + 1
+            assert torch.equal(got, want), (Lq, sc)
+    wide = torch.zeros((1, 1 << 20), dtype=torch.uint8, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        nw.nw_variant_scores(wide, torch.ones(1, dtype=torch.int32,
+                                              device="cuda"),
+                             torch.zeros(2100, dtype=torch.uint8,
+                                         device="cuda"), mode)
+
+
+@pytest.mark.parametrize("mode", sorted(nw.VARIANT_MODES))
+def test_variant_kernel_at_the_paths_shapes_on_card(mode):
+    """The nw_gpu example's shape (65,536 x 64 vs 40 bp) and the QC batch
+    (4,096 x 256 vs 150 bp): kernel equal to plain on every row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    for B, Lq, Lr in ((65536, 64, 40), (4096, 256, 150)):
+        seq, lengths, ref = _inputs(B, Lq, Lr, seed=B + Lr)
+        d = [torch.from_numpy(a).cuda() for a in (seq, lengths, ref)]
+        got = nw.nw_variant_scores(*d, mode)
+        want = getattr(nw, nw.VARIANT_MODES[mode][1])(*d)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (B, Lq, Lr)

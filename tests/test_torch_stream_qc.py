@@ -8,14 +8,23 @@ exact; float fields agree to rel 1e-12 (both packages derive them in
 float64 from the same int64 totals).
 
 Also: a gzip cut inside a member and a gzip whose FASTQ ends inside a record
-raise the same exception class from run_file_device as from run_file.
+raise the same exception class from run_file_device as from run_file; and a
+last record cut inside its quality line (no final newline), plain and
+gzipped, gives the reference's plain-file report on every route, run after
+run.
 """
 
 import gzip
+import json
+import os
+import subprocess
+import sys
 import zlib
 
+import numpy as np
 import pytest
 
+import blazeseq_tpu as bt
 from blazeseq_tpu.io.writers import BGZFWriter
 from blazeseq_tpu.models import QCModel as JaxQCModel
 from blazeseq_tpu_torch import QCModel
@@ -209,3 +218,95 @@ def test_truncated_stream_raises_like_run_file(tmp_path, cut, layout):
         quality_schema="sanger", max_read_len=128, device="cpu").run_file(p))
     assert isinstance(got, tuple) and got == want, (got, want)
     assert port.tier_chunks[layout] > 0, port.tier_chunks
+
+
+# A last record cut inside its quality line, with no final newline: the
+# uniform corpus cut by 40 bytes (111 of 150 quality bytes left) and a
+# ragged one cut by 30. The missing quality bytes are zeros on every route
+# of the port, as they are in the reference on the plain file: one error
+# read, and qual_hist[0] counts them.
+CUT_TAILS = {
+    "uniform": (lambda: bt.generate_synthetic_fastq_buffer(
+        12000, 150, 150, 2, 40, "sanger"), 40, 39),
+    "ragged": (lambda: bt.generate_variable_id_fastq_buffer(
+        14000, 20, 300, 2, 40, "sanger", seed=6), 30, 29),
+}
+CUT_ROUTES = {
+    "device_1mb": lambda m, p: m.run_file_device(p, chunk_mb=1),
+    "device": lambda m, p: m.run_file_device(p),
+    "run_file": lambda m, p: m.run_file(p),
+}
+
+
+@pytest.fixture(scope="module")
+def cut_tails(tmp_path_factory):
+    """Each cut corpus as a plain file and a level-1 gzip, with the
+    reference's report on the plain file (its run_file, which equals its
+    run_file_device there and compiles no ragged step), computed once."""
+    d = tmp_path_factory.mktemp("cut_tails")
+    out = {}
+    for layout, (make, cut, zeros) in CUT_TAILS.items():
+        raw = bytes(make())[:-cut]
+        plain, gz = str(d / (layout + ".fastq")), str(d / (layout + ".fq.gz"))
+        with open(plain, "wb") as f:
+            f.write(raw)
+        with open(gz, "wb") as f:
+            f.write(gzip.compress(raw, 1))
+        want = JaxQCModel(quality_schema="sanger").run_file(plain)
+        out[layout] = dict(plain=plain, gz=gz, want=want, zeros=zeros)
+    return out
+
+
+@pytest.mark.parametrize("route", sorted(CUT_ROUTES))
+@pytest.mark.parametrize("comp", ["plain", "gz"])
+@pytest.mark.parametrize("layout", sorted(CUT_TAILS))
+def test_cut_quality_tail_matches_reference_plain_file(cut_tails, layout,
+                                                       comp, route):
+    case = cut_tails[layout]
+    want = case["want"]
+    assert want.error_reads == 1
+    assert np.asarray(want.qual_hist)[0] == case["zeros"]
+    for _ in range(2):  # the same answer run after run
+        model = QCModel(quality_schema="sanger", device="cpu")
+        _assert_reports_equal(CUT_ROUTES[route](model, case[comp]), want)
+
+
+def test_cut_quality_tail_reference_gzip_is_a_recorded_difference(cut_tails):
+    """Deliberate difference: the reference's gather reads the missing
+    quality bytes past the tail, from whatever its gzip reader's buffer
+    holds there, so its gzip report's quality leaves vary from run to run
+    and are not compared. The leaves that do not read quality agree."""
+    case = cut_tails["uniform"]
+    ref_gz = JaxQCModel(quality_schema="sanger").run_file(case["gz"])
+    got = QCModel(quality_schema="sanger", device="cpu").run_file(case["gz"])
+    for k in ("reads", "bases", "base_counts", "length_hist",
+              "per_pos_base_counts", "gc_hist"):
+        assert np.array_equal(np.asarray(getattr(got, k)),
+                              np.asarray(getattr(ref_gz, k))), k
+
+
+_CUT_TAIL_CHILD = """
+import json, sys
+from blazeseq_tpu_torch import QCModel
+m = QCModel(quality_schema="sanger", device="cpu")
+print(json.dumps(m.run_file_device(sys.argv[1], chunk_mb=1).to_dict(),
+                 sort_keys=True))
+"""
+
+
+def test_cut_quality_tail_same_in_two_processes(cut_tails):
+    """Two processes of their own give the report of this one on the
+    gzipped cut corpus (the uniform stream tier's tail)."""
+    gz = cut_tails["uniform"]["gz"]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = [subprocess.Popen([sys.executable, "-c", _CUT_TAIL_CHILD, gz],
+                              stdout=subprocess.PIPE, env=env, cwd=repo)
+             for _ in range(2)]
+    outs = [p.communicate(timeout=120)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs)
+    here = QCModel(quality_schema="sanger",
+                   device="cpu").run_file_device(gz, chunk_mb=1).to_dict()
+    want = json.loads(json.dumps(here, sort_keys=True))
+    assert [json.loads(o.decode().strip().splitlines()[-1])
+            for o in outs] == [want, want]
