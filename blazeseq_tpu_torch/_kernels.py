@@ -27,7 +27,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("validate.cu", "uniform_qc.cu", "nw.cu", "scan.cu",
-           "ragged_qc.cu")
+           "ragged_qc.cu", "qc_stats.cu", "adapter.cu", "dedup.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "libblazeseq_kernels.so"
@@ -67,6 +67,15 @@ _SIGNATURES = {
     "bs_ragged_qc": (_P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P),
     # width
     "bs_ragged_qc_blocks_per_sm": (_I,),
+    # seq, qual, lengths, codes, out, n, n_valid, L, col_offset, offset,
+    # reads, count_scalars, row_stats, qual_hist_2d, sm_count, stream
+    "bs_qc_stats": (_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _I,
+                    _I, _P),
+    # seq, lengths, adapter, out, n_valid, L, la, reads_scanned, sm_count,
+    # stream
+    "bs_adapter_content": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
+    # seq, lengths, out, n, n_valid, L, sm_count, stream
+    "bs_read_hashes": (_P, _P, _P, _LL, _LL, _I, _I, _P),
 }
 
 

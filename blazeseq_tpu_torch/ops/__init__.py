@@ -9,14 +9,17 @@ alignment variants drop the suffix (`sw_scores`, `nw_affine_scores`, ...)
 and dispatch to csrc/nw.cu's variant kernel beside their plain versions
 (`sw_scores_torch`, ...; `nw_variant_scores` counts their launches).
 `ragged_qc` (XLA code in the reference) gets a hand-written kernel too, and
-`ragged_qc_torch` beside it. `use_interpret` is a TPU-only knob and is not
-ported.
+`ragged_qc_torch` beside it; so do the padded-batch panels `qc_stats`,
+`adapter_content` and `read_hashes` (`qc_stats_torch`,
+`adapter_content_torch`, `read_hashes_torch`). `use_interpret` is a
+TPU-only knob and is not ported.
 """
 
-from .adapter import AdapterStats, adapter_content, adapter_content_cpu
+from .adapter import (AdapterStats, adapter_content, adapter_content_cpu,
+                      adapter_content_torch)
 from .common import length_mask, round_up
 from .dedup import (duplication_levels, overrepresented_sequences,
-                    read_hashes, read_hashes_cpu)
+                    read_hashes, read_hashes_cpu, read_hashes_torch)
 from .demux import (demultiplex_counts, demultiplex_to_writers, demux_assign,
                     demux_assign_host)
 from .kmer import kmer_counts, kmer_counts_cpu
@@ -37,7 +40,8 @@ from .scan import (count_records_device, gather_padded_device,
                    record_offsets_device, structural_bitmaps,
                    structural_bitmaps_torch)
 from .stats import (GC_BINS, LEN_BINS, MAX_PHRED, QCAccumulator, QCStats,
-                    qc_stats, row_histograms, row_partials, zero_stats)
+                    qc_stats, qc_stats_torch, row_histograms, row_partials,
+                    zero_stats)
 from .tiles import (PerTileAccumulator, parse_illumina_tiles,
                     per_tile_qual_sums)
 from .trim import (bwa_trim, bwa_trim_cpu, clip_ends, clip_ends_cpu,

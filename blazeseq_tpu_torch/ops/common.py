@@ -25,6 +25,36 @@ def length_mask(lengths: torch.Tensor, width: int,
     return (pos[None, :] + col_offset) < lengths[:, None].to(torch.int64)
 
 
+def check_cuda_batch(who: str, rows, ints) -> None:
+    """Raise unless the tensors are contiguous and on one CUDA device:
+    `rows`, (name, tensor) pairs, u8 [n, L] of one shape; `ints` int32 [n].
+    A None tensor is skipped. The kernels' wrappers call this before they
+    load the library."""
+    named = ([(k, t, torch.uint8) for k, t in rows]
+             + [(k, t, torch.int32) for k, t in ints if t is not None])
+    for name, t, dt in named:
+        if not t.is_cuda:
+            raise ValueError("%s: %s is not on a CUDA device (got %s)"
+                             % (who, name, t.device))
+        if t.dtype != dt:
+            raise TypeError("%s: %s must be %s, got %s"
+                            % (who, name, dt, t.dtype))
+        if not t.is_contiguous():
+            raise ValueError("%s: %s must be contiguous" % (who, name))
+    seq = rows[0][1]
+    if seq.dim() != 2 or any(t.shape != seq.shape for _, t in rows):
+        raise ValueError("%s: %s must %s [n, L], got %s" % (
+            who, " and ".join(k for k, _ in rows),
+            "both be" if len(rows) == 2 else "be",
+            " and ".join(str(tuple(t.shape)) for _, t in rows)))
+    for name, t, _ in named[len(rows):]:
+        if t.shape != (seq.shape[0],):
+            raise ValueError("%s: %s must be [n], got %s"
+                             % (who, name, tuple(t.shape)))
+    if len({t.device for _, t, _ in named}) != 1:
+        raise ValueError("%s: inputs on different devices" % who)
+
+
 def resolve_device(device, who: str) -> torch.device:
     """The torch device a model runs on. "cuda" needs a CUDA card and raises
     without one; "cpu" (the plain torch versions of the kernels) must be

@@ -8,7 +8,10 @@ equal the reference's bit for bit, since duplicate counts depend on their
 collisions. torch has no wrapping uint32 arithmetic, so the hashes are
 computed in int64 and masked to 32 bits after every product and every sum:
 a byte (< 2^8) times a power (< 2^32) stays below 2^40, and a row sum of L
-masked products below L * 2^32.
+masked products below L * 2^32. That is `read_hashes_torch`, the plain
+version; `read_hashes` dispatches on the tensors' device: CPU tensors take
+the plain version, CUDA tensors the hand-written kernel in csrc/dedup.cu
+(native wrapping uint32 arithmetic), or the call raises.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import functools
 import numpy as np
 import torch
 
-from .common import length_mask
+from .. import _kernels
+from .common import check_cuda_batch, length_mask
 
 _BASE_A = 1000003
 _BASE_B = 0x01000193  # FNV prime
@@ -37,13 +41,8 @@ def _powers(base: int, L: int, device: torch.device) -> torch.Tensor:
     return torch.tensor(p, dtype=torch.int64, device=device)
 
 
-def read_hashes(seq, lengths, n_records=None) -> torch.Tensor:
-    """Hash each read of a padded batch u8[n, L] -> int64[n, 2], each value
-    a uint32 (in [0, 2^32)).
-
-    Bytes past the true length are masked, the true length is mixed in;
-    padding rows (row >= n_records, a host int) get the all-ones sentinel,
-    which the host side drops."""
+def read_hashes_torch(seq, lengths, n_records=None) -> torch.Tensor:
+    """Plain torch version of `read_hashes`."""
     n, L = seq.shape
     dev = seq.device
     if n_records is None:
@@ -58,6 +57,42 @@ def read_hashes(seq, lengths, n_records=None) -> torch.Tensor:
         h = (prod.sum(1) & _MASK) + ((lens * salt) & _MASK)
         out.append(torch.where(row_valid, h & _MASK, _MASK))
     return torch.stack(out, 1)
+
+
+def _read_hashes_cuda(seq, lengths, n_records):
+    check_cuda_batch("read_hashes", [("seq", seq)], [("lengths", lengths)])
+    n, L = seq.shape
+    dev = seq.device
+    n_valid = n if n_records is None else min(n, max(int(n_records), 0))
+    out = torch.empty((n, 2), dtype=torch.int64, device=dev)
+    if n == 0:
+        return out
+    lib = _kernels.load()
+    args = (seq.data_ptr(), lengths.data_ptr(), out.data_ptr(), n, n_valid,
+            L, _kernels.sm_count(dev.index), _kernels.stream_ptr(dev))
+    with _kernels.on_device(dev):
+        err = lib.bs_read_hashes(*args)
+    _kernels.check(err, "bs_read_hashes")
+    read_hashes.launches += 1
+    return out
+
+
+def read_hashes(seq, lengths, n_records=None) -> torch.Tensor:
+    """Hash each read of a padded batch u8[n, L] -> int64[n, 2], each value
+    a uint32 (in [0, 2^32)).
+
+    Bytes past the true length are masked, the true length is mixed in;
+    padding rows (row >= n_records, a host int) get the all-ones sentinel,
+    which the host side drops. CPU tensors run `read_hashes_torch`; CUDA
+    tensors run the kernel (counted in `read_hashes.launches`) or raise."""
+    if seq.is_cuda:
+        return _read_hashes_cuda(seq, lengths, n_records)
+    if seq.device.type != "cpu":
+        raise ValueError("read_hashes: unsupported device %s" % seq.device)
+    return read_hashes_torch(seq, lengths, n_records)
+
+
+read_hashes.launches = 0
 
 
 def read_hashes_cpu(reads) -> np.ndarray:

@@ -4,18 +4,23 @@ blazeseq_tpu/ops/stats.py).
 Device leaves are int32, as in the reference: single-batch magnitudes are
 small, and cross-batch totals are accumulated on the host in int64 by
 `QCAccumulator`. Every leaf is additive, so batches and chunks merge by
-addition. `qc_stats` is plain torch ops; it was jnp outside any Pallas kernel
-in the reference.
+addition. The reference's `qc_stats` is jnp outside any Pallas kernel; here
+`qc_stats_torch` is its plain torch version, and `qc_stats` dispatches on
+the tensors' device: CPU tensors take the plain version, CUDA tensors the
+hand-written kernel in csrc/qc_stats.cu, or the call raises.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .common import length_mask
+from .. import _kernels
+from .common import check_cuda_batch, length_mask
 
 MAX_PHRED = 64  # histogram bins [0, 64)
 LEN_BINS = 512  # read-length distribution bins; longer reads clip to 511
@@ -151,17 +156,11 @@ def row_histograms(gc, qsum, cnt, lengths, n_records):
             bin_counts(mq_bin, nonempty, MAX_PHRED))
 
 
-def qc_stats(seq, qual, lengths, offset: int, n_records=None,
-             error_codes=None, col_offset=0,
-             count_scalars: bool = True, row_stats: bool = True,
-             qual_hist_2d: bool = False) -> QCStats:
-    """QCStats for one padded batch seq, qual u8[n, L], lengths int32[n].
-
-    `n_records` separates genuine records from padding rows. `col_offset`
-    is the batch's starting column when it holds a column slice of longer
-    records; `count_scalars=False` zeroes the per-record scalars and
-    per-read panels (reads, bases, error_reads, the three row histograms),
-    for every column slice but the first."""
+def qc_stats_torch(seq, qual, lengths, offset: int, n_records=None,
+                   error_codes=None, col_offset=0,
+                   count_scalars: bool = True, row_stats: bool = True,
+                   qual_hist_2d: bool = False) -> QCStats:
+    """Plain torch version of `qc_stats`."""
     n, L = seq.shape
     dev = seq.device
     offset = int(offset)
@@ -223,6 +222,75 @@ def qc_stats(seq, qual, lengths, offset: int, n_records=None,
         mean_qual_hist=mq_h,
         per_pos_qual_hist=pp_qual_hist,
     )
+
+
+@functools.cache
+def _layout(L: int, qual_hist_2d: bool):
+    """(shape, size) of each QCStats leaf of an [n, L] batch in field order,
+    (None, 0) for an untracked leaf: the layout of the kernel's one output
+    buffer (csrc/qc_stats.cu, Layout)."""
+    shapes = ((), (), (5,), (5, L), (L,), (L,), (MAX_PHRED,), (), (),
+              (LEN_BINS,), (GC_BINS,), (MAX_PHRED,),
+              (MAX_PHRED, L) if qual_hist_2d else None)
+    return tuple((s, 0 if s is None else math.prod(s)) for s in shapes)
+
+
+def _qc_stats_cuda(seq, qual, lengths, offset, n_records, error_codes,
+                   col_offset, count_scalars, row_stats, qual_hist_2d):
+    check_cuda_batch("qc_stats", [("seq", seq), ("qual", qual)],
+                     [("lengths", lengths), ("error_codes", error_codes)])
+    n, L = seq.shape
+    dev = seq.device
+    layout = _layout(L, bool(qual_hist_2d))
+    sizes = [k for _, k in layout]
+    # every leaf a view of one buffer: one zero fill, one launch
+    flat = torch.zeros(sum(sizes), dtype=torch.int32, device=dev)
+    leaves = QCStats(*(None if shape is None else
+                       part if len(shape) == 1 else part.view(shape)
+                       for (shape, _), part in zip(layout, flat.split(sizes))))
+    n_rec = n if n_records is None else int(n_records)
+    reads = n_rec if count_scalars else 0
+    if n == 0:
+        if reads:
+            flat[0] = reads
+        return leaves
+    lib = _kernels.load()
+    args = (seq.data_ptr(), qual.data_ptr(), lengths.data_ptr(),
+            None if error_codes is None else error_codes.data_ptr(),
+            flat.data_ptr(), n, min(n, max(n_rec, 0)), L, int(col_offset),
+            int(offset), reads, int(bool(count_scalars)),
+            int(bool(row_stats)), int(bool(qual_hist_2d)),
+            _kernels.sm_count(dev.index), _kernels.stream_ptr(dev))
+    with _kernels.on_device(dev):
+        err = lib.bs_qc_stats(*args)
+    _kernels.check(err, "bs_qc_stats")
+    qc_stats.launches += 1
+    return leaves
+
+
+def qc_stats(seq, qual, lengths, offset: int, n_records=None,
+             error_codes=None, col_offset=0,
+             count_scalars: bool = True, row_stats: bool = True,
+             qual_hist_2d: bool = False) -> QCStats:
+    """QCStats for one padded batch seq, qual u8[n, L], lengths int32[n].
+
+    `n_records` (a host int) separates genuine records from padding rows.
+    `col_offset` is the batch's starting column when it holds a column
+    slice of longer records; `count_scalars=False` zeroes the per-record
+    scalars and per-read panels (reads, bases, error_reads, the three row
+    histograms), for every column slice but the first. CPU tensors run
+    `qc_stats_torch`; CUDA tensors run the kernel (counted in
+    `qc_stats.launches`) or raise."""
+    args = (seq, qual, lengths, offset, n_records, error_codes, col_offset,
+            count_scalars, row_stats, qual_hist_2d)
+    if seq.is_cuda:
+        return _qc_stats_cuda(*args)
+    if seq.device.type != "cpu":
+        raise ValueError("qc_stats: unsupported device %s" % seq.device)
+    return qc_stats_torch(*args)
+
+
+qc_stats.launches = 0
 
 
 class QCAccumulator:

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
-from .common import length_mask
+from .common import check_cuda_batch, length_mask
 
 ASCII_INVALID = 4
 QUALITY_OUT_OF_RANGE = 5
@@ -53,31 +53,10 @@ def lane_group(L: int, *ptrs: int) -> int:
     return min(32, 1 << (L // 16 - 1).bit_length())
 
 
-def _check_batch(seq, qual, lengths):
-    for name, t, dt in (("seq", seq, torch.uint8), ("qual", qual, torch.uint8),
-                        ("lengths", lengths, torch.int32)):
-        if not t.is_cuda:
-            raise ValueError("validate_decode: %s is not on a CUDA device "
-                             "(got %s)" % (name, t.device))
-        if t.dtype != dt:
-            raise TypeError("validate_decode: %s must be %s, got %s"
-                            % (name, dt, t.dtype))
-        if not t.is_contiguous():
-            raise ValueError("validate_decode: %s must be contiguous" % name)
-    if seq.dim() != 2 or qual.shape != seq.shape:
-        raise ValueError("validate_decode: seq and qual must both be [n, L], "
-                         "got %s and %s" % (tuple(seq.shape),
-                                            tuple(qual.shape)))
-    if lengths.shape != (seq.shape[0],):
-        raise ValueError("validate_decode: lengths must be [n], got %s"
-                         % (tuple(lengths.shape),))
-    if not (seq.device == qual.device == lengths.device):
-        raise ValueError("validate_decode: inputs on different devices")
-
-
 def _validate_decode_cuda(seq, qual, lengths, q_lower, q_upper, offset,
                           check_ascii, check_quality, col_offset):
-    _check_batch(seq, qual, lengths)
+    check_cuda_batch("validate_decode", [("seq", seq), ("qual", qual)],
+                     [("lengths", lengths)])
     lib = _kernels.load()
     n, L = seq.shape
     dev = seq.device

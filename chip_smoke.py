@@ -7,9 +7,14 @@ source, all started together), holds each kernel against its plain torch
 version on the card (the ragged kernels on their edge cases and a 256 MiB
 chunk of the ragged corpus below; the alignment variant kernel in each of
 its five modes at the example's and the QC batch's shapes and on edge
-batches, with two score sets), then drives the port's paths, each with
-the launch counts set to 0 just before it and read just after, and with
-no torch wavefront of ops/nw.py allowed a CUDA tensor:
+batches, with two score sets; the padded-batch panel kernels qc_stats,
+adapter_content and read_hashes at run_file's 4,096 x 256 batch, qc_stats
+also at 32,768 x 1,024 with the quartile leaf, and on edge batches), then
+drives the port's paths, each with the launch counts set to 0 just before
+it and read just after, and with no plain torch version of a host-route
+kernel (ops/nw.py's wavefronts, qc_stats_torch, adapter_content_torch,
+read_hashes_torch) allowed a CUDA tensor, in this process or in the ranks
+it spawns:
 
 * QCModel(device="cuda").run_file_device over a 2 GiB uniform FASTQ file
   and a 1 GiB quality-binned one, each checked panel by panel against an
@@ -96,6 +101,9 @@ KERNEL_A_SOURCE = "blazeseq_tpu_torch/csrc/validate.cu"
 KERNEL_NW_SOURCE = "blazeseq_tpu_torch/csrc/nw.cu"
 KERNEL_SCAN_SOURCE = "blazeseq_tpu_torch/csrc/scan.cu"
 KERNEL_RAGGED_SOURCE = "blazeseq_tpu_torch/csrc/ragged_qc.cu"
+KERNEL_QC_STATS_SOURCE = "blazeseq_tpu_torch/csrc/qc_stats.cu"
+KERNEL_ADAPTER_SOURCE = "blazeseq_tpu_torch/csrc/adapter.cu"
+KERNEL_HASH_SOURCE = "blazeseq_tpu_torch/csrc/dedup.cu"
 # the upstream nw_gpu example: 1M reads x 40 bp against a 40 bp reference
 NW_READS = 1_000_000
 NW_READ_LEN = 40
@@ -163,6 +171,13 @@ NW_OPS_PER_CELL = 4
 # DPX max-relu, and the running max
 NW_VARIANT_OPS_PER_CELL = dict(local=6, semiglobal=5, affine=8,
                                local_affine=9, semiglobal_affine=8)
+# the padded-batch panels' least int32 work: qc_stats per masked position a
+# case fold, a class lookup and its count, the Phred subtract and two
+# clamps, the per-position sum, the histogram bin and the row's GC and
+# Phred sums; the adapter scan one compare per start column it must test
+# (up to the read's first hit); the hashes two multiply-adds per byte
+QC_STATS_OPS_PER_POSITION = 10
+HASH_OPS_PER_BYTE = 4
 # NWAligner's five variant combinations (mode, gap_open) by the name of
 # their kernel mode
 NW_VARIANTS = dict(local=("local", None), semiglobal=("semiglobal", None),
@@ -998,6 +1013,202 @@ def phase_kernel_a(seed):
     for rec in out:
         rec["max_abs_err"] = err
     return out
+
+
+# the panels' timed batch: run_file's padded batch (4,096 x max_read_len
+# 256); qc_stats also with the quartile leaf and at 32,768 x 1,024
+PANEL_SHAPE = (4096, 256)
+PANEL_WIDE = (32768, 1024)
+PANEL_EDGE_WIDTHS = (1, 7, 16, 33, 256, 1024)
+# a batch tall enough that qc_stats' blocks take their most rows (512)
+PANEL_TALL = (300_000, 16)
+# (count_scalars, row_stats, qual_hist_2d)
+QC_STATS_OPTIONS = ((True, True, False), (False, True, False),
+                    (True, False, False), (True, True, True))
+
+
+def panel_inputs(rng, n, L, offset=33):
+    """seq, qual, lengths and codes of a padded batch for the panel
+    kernels: kernel A's bytes and lengths (0 to past L), quality bytes
+    below the offset and past offset + 63, the adapter planted in every
+    eighth row (every sixteenth in lower case), codes drawn from 0, 4, 5."""
+    seq, qual, lengths = kernel_a_inputs(rng, n, L)
+    k = max(2, n * L // 50)
+    qual.flat[rng.integers(0, n * L, k)] = rng.choice(
+        np.array([0, offset - 1, offset + 63, offset + 64, 0xFF], np.uint8),
+        k)
+    a = np.frombuffer(ADAPTER, np.uint8)
+    if L > len(a):
+        for r in range(0, n, 8):
+            j = int(rng.integers(0, L - len(a) + 1))
+            seq[r, j:j + len(a)] = a | (0x20 if r % 16 == 8 else 0)
+    codes = rng.choice(np.array([0] * 8 + [4, 5], np.int32), n)
+    return seq, qual, lengths, codes
+
+
+def qc_stats_bound(lengths, L, n_valid, qual_hist_2d, col_offset=0):
+    """bound() of one qc_stats call: seq and qual read where a record's
+    length reaches, lengths and codes of the records, the leaves written
+    once."""
+    inlen = int(np.clip(lengths[:n_valid].astype(np.int64) - col_offset, 0,
+                        L).sum())
+    # the QCStats leaves: 750 values beside 7 a column (the quartile leaf
+    # 64 more a column)
+    leaves = 750 + 7 * L + (64 * L if qual_hist_2d else 0)
+    return bound(2 * inlen + 8 * n_valid + 4 * leaves,
+                 QC_STATS_OPS_PER_POSITION * inlen)
+
+
+def adapter_bound(seq, lengths, n_valid, adapter):
+    """bound() of one adapter_content call on this data: each record read
+    up to the end of its first hit (to its length without one), one
+    compare per start column up to the first hit, lengths and the panel."""
+    import torch
+
+    from blazeseq_tpu_torch.ops.adapter import _adapter_matches
+
+    n, L = seq.shape
+    la = len(adapter)
+    hit = _adapter_matches(seq[:n_valid], lengths[:n_valid], adapter)
+    any_hit = hit.any(1)
+    first = hit.to(torch.int32).argmax(1)
+    fit = lengths[:n_valid].clamp(0, L).to(first.dtype)
+    starts = torch.where(any_hit, first + 1, (fit - la + 1).clamp(min=0))
+    read = torch.where(any_hit, first + la, fit)
+    return bound(int(read.sum()) + 4 * n_valid + 4 * (L + 2),
+                 int(starts.sum()))
+
+
+def hash_bound(lengths, L, n, n_valid):
+    """bound() of one read_hashes call: each record read up to its length
+    (clipped to L), the lengths, 16 bytes written a row."""
+    inlen = int(np.clip(lengths[:n_valid], 0, L).astype(np.int64).sum())
+    return bound(inlen + 4 * n + 16 * n, HASH_OPS_PER_BYTE * inlen)
+
+
+def _card_rows(a, off):
+    """`a` on the card as a contiguous view `off` bytes into its storage
+    (off 1: rows off 4-byte alignment, the kernels' byte path)."""
+    import torch
+
+    flat = torch.empty(a.size + off, dtype=torch.uint8, device="cuda")
+    flat[off:].copy_(torch.from_numpy(a.reshape(-1)))
+    return flat[off:].view(a.shape)
+
+
+def phase_padded_panels(seed):
+    """The padded-batch panel kernels against their plain versions on the
+    card, bit for bit: qc_stats (csrc/qc_stats.cu), adapter_content
+    (csrc/adapter.cu) and read_hashes (csrc/dedup.cu). At PANEL_SHAPE with
+    every option set of qc_stats and at PANEL_WIDE with the quartile leaf;
+    then edge batches of 300 rows at PANEL_EDGE_WIDTHS, rows aligned and one
+    byte off, offsets 33 and 64, n_records n, in between and 0 (col_offset 5
+    and no codes in between), every option set, adapters of 0, 1 and 12
+    bytes, and PANEL_TALL. Returns one JSON record per kernel, timed at PANEL_SHAPE with
+    n_records = n (qc_stats with the default options; with the quartile
+    leaf and at PANEL_WIDE under `variants`)."""
+    import torch
+
+    from blazeseq_tpu_torch.ops import adapter as ad
+    from blazeseq_tpu_torch.ops import dedup
+    from blazeseq_tpu_torch.ops import stats
+
+    rng = np.random.default_rng([seed, 43])
+    n_cases = 0
+
+    def same(got, want, label):
+        nonlocal n_cases
+        torch.cuda.synchronize()
+        max_abs_diff(got, want, label)
+        n_cases += 1
+
+    def compare_all(dseq, dqual, dlen, dcodes, offset, label):
+        n = dseq.shape[0]
+        for nr, codes, col in ((n, dcodes, 0), (n // 2 + 1, None, 5),
+                               (0, dcodes, 0)):
+            for cs, rs, q2 in QC_STATS_OPTIONS:
+                kw = dict(n_records=nr, error_codes=codes, col_offset=col,
+                          count_scalars=cs, row_stats=rs, qual_hist_2d=q2)
+                same(stats.qc_stats(dseq, dqual, dlen, offset, **kw),
+                     stats.qc_stats_torch(dseq, dqual, dlen, offset, **kw),
+                     "qc_stats %s %r" % (label, kw))
+            for adapter in (b"", b"C", ADAPTER):
+                same(ad.adapter_content(dseq, dlen, nr, adapter_host=adapter),
+                     ad.adapter_content_torch(dseq, dlen, nr,
+                                              adapter_host=adapter),
+                     "adapter_content %s %r n_records %d"
+                     % (label, adapter, nr))
+            same((dedup.read_hashes(dseq, dlen, nr),),
+                 (dedup.read_hashes_torch(dseq, dlen, nr),),
+                 "read_hashes %s n_records %d" % (label, nr))
+
+    variants = {}
+    recs = {}
+    for (n, L), offsets in ((PANEL_SHAPE, (33, 64)), (PANEL_WIDE, (33,))):
+        for offset in offsets:
+            seq, qual, lengths, codes = panel_inputs(rng, n, L, offset)
+            d = [torch.from_numpy(a).cuda()
+                 for a in (seq, qual, lengths, codes)]
+            compare_all(*d, offset, "[%d, %d] offset %d" % (n, L, offset))
+        tag = "%dx%d" % (n, L)
+        for q2 in ((False, True) if (n, L) == PANEL_SHAPE else (True,)):
+            def kern():
+                return stats.qc_stats(d[0], d[1], d[2], 33, n_records=n,
+                                      error_codes=d[3], qual_hist_2d=q2)
+
+            def plain():
+                return stats.qc_stats_torch(d[0], d[1], d[2], 33,
+                                            n_records=n, error_codes=d[3],
+                                            qual_hist_2d=q2)
+
+            rec = dict(shape=[n, L], ms=cuda_ms(kern),
+                       plain_ms=cuda_ms(plain, inner=2),
+                       **qc_stats_bound(lengths, L, n, q2))
+            if (n, L) == PANEL_SHAPE and not q2:
+                recs["qc_stats"] = rec
+            else:
+                variants[tag + ("_qual_hist_2d" if q2 else "")] = rec
+        if (n, L) == PANEL_SHAPE:
+            recs["adapter_content"] = dict(
+                shape=[n, L],
+                ms=cuda_ms(lambda: ad.adapter_content(
+                    d[0], d[2], n, adapter_host=ADAPTER)),
+                plain_ms=cuda_ms(lambda: ad.adapter_content_torch(
+                    d[0], d[2], n, adapter_host=ADAPTER), inner=2),
+                **adapter_bound(d[0], d[2], n, ADAPTER))
+            recs["read_hashes"] = dict(
+                shape=[n, L], ms=cuda_ms(lambda: dedup.read_hashes(
+                    d[0], d[2], n)),
+                plain_ms=cuda_ms(lambda: dedup.read_hashes_torch(
+                    d[0], d[2], n), inner=2),
+                **hash_bound(lengths, L, n, n))
+        del d
+    for L in PANEL_EDGE_WIDTHS:
+        for offset in (33, 64):
+            seq, qual, lengths, codes = panel_inputs(rng, 300, L, offset)
+            lengths[:4] = (0, L, L + 1, 2 * L + 1)
+            dlen, dcodes = (torch.from_numpy(a).cuda()
+                            for a in (lengths, codes))
+            for off in (0, 1):
+                compare_all(_card_rows(seq, off), _card_rows(qual, off),
+                            dlen, dcodes, offset,
+                            "L=%d offset %d off %d" % (L, offset, off))
+    n, L = PANEL_TALL
+    d = [torch.from_numpy(a).cuda() for a in panel_inputs(rng, n, L)]
+    compare_all(*d, 33, "[%d, %d]" % (n, L))
+    del d
+    recs["qc_stats"]["variants"] = variants
+    for name, rec in recs.items():
+        rec["max_abs_err"] = 0
+        log("%s %s: kernel %.4f ms, plain %.4f ms, bound %.5f ms (%s)"
+            % (name, rec["shape"], rec["ms"], rec["plain_ms"],
+               rec["bound_ms"], rec["bound_by"]))
+    for tag, rec in variants.items():
+        log("qc_stats %s: kernel %.4f ms, plain %.4f ms, bound %.5f ms (%s)"
+            % (tag, rec["ms"], rec["plain_ms"], rec["bound_ms"],
+               rec["bound_by"]))
+    log("padded-batch panel kernels == plain on %d cases" % n_cases)
+    return recs
 
 
 def _records(n, read_len, schema, rng, header_width=12):
@@ -2553,10 +2764,14 @@ def mesh_worker(case, store, inp, out):
         _kernels.load()
         for k in kernels.values():
             k.launches = 0
+        restore = _no_plain_on_card()
         dist.barrier()
         t0 = time.perf_counter()
-        res = MESH_CASES[case](x)
-        torch.cuda.synchronize()
+        try:
+            res = MESH_CASES[case](x)
+            torch.cuda.synchronize()
+        finally:
+            restore()
         dist.barrier()
         meta = dict(wall_s=time.perf_counter() - t0,
                     backend=dist.get_backend(),
@@ -2690,38 +2905,42 @@ def phase_mesh_ranks(seed, files, oracle, keep, ragged, tmp, kernels):
     return out
 
 
-def _no_wavefront_on_card():
-    """Wrap ops/nw.py's plain torch versions (the wavefronts) so that a
-    call with a CUDA tensor raises; returns a function that unwraps
-    them."""
-    from blazeseq_tpu_torch.ops import nw
+def _no_plain_on_card():
+    """Wrap the plain torch versions of the kernels that the host route's
+    steps dispatch to (ops/nw.py's wavefronts, qc_stats_torch,
+    adapter_content_torch and read_hashes_torch) so that a call with a
+    CUDA tensor raises; returns a function that unwraps them."""
+    from blazeseq_tpu_torch.ops import adapter, dedup, nw, stats
 
-    saved = {n: getattr(nw, n) for n in ["nw_scores_torch"] + [
-        plain for _, plain, _ in nw.VARIANT_MODES.values()]}
+    saved = [(nw, n) for n in ["nw_scores_torch"] + [
+        plain for _, plain, _ in nw.VARIANT_MODES.values()]]
+    saved += [(stats, "qc_stats_torch"), (adapter, "adapter_content_torch"),
+              (dedup, "read_hashes_torch")]
+    saved = [(mod, n, getattr(mod, n)) for mod, n in saved]
 
     def guard(name, fn):
         def wrapped(seq, *a, **k):
             if seq.is_cuda:
-                raise AssertionError("%s, a torch wavefront, ran on the card"
-                                     % name)
+                raise AssertionError("%s, a plain torch version, ran on the "
+                                     "card" % name)
             return fn(seq, *a, **k)
         return wrapped
 
-    for name, fn in saved.items():
-        setattr(nw, name, guard(name, fn))
-    return lambda: [setattr(nw, n, fn) for n, fn in saved.items()]
+    for mod, name, fn in saved:
+        setattr(mod, name, guard(name, fn))
+    return lambda: [setattr(mod, n, fn) for mod, n, fn in saved]
 
 
 def run_path(name, fn, kernels):
     """Drive one path with every launch count set to 0 just before it, and
-    no torch wavefront allowed on the card; returns its result and the
-    counts read just after. Raises when a kernel of the path was never
-    launched."""
+    no plain torch version of a host-route kernel allowed on the card;
+    returns its result and the counts read just after. Raises when a
+    kernel of the path was never launched."""
     import torch
 
     for k in kernels.values():
         k.launches = 0
-    restore = _no_wavefront_on_card()
+    restore = _no_plain_on_card()
     t0 = time.perf_counter()
     try:
         out = fn()
@@ -2741,16 +2960,20 @@ def run_path(name, fn, kernels):
 
 def _kernel_fns():
     """The wrapper of every kernel, by name; each counts its launches."""
+    from blazeseq_tpu_torch.ops.adapter import adapter_content
+    from blazeseq_tpu_torch.ops.dedup import read_hashes
     from blazeseq_tpu_torch.ops.nw import nw_scores, nw_variant_scores
     from blazeseq_tpu_torch.ops.ragged_qc import ragged_qc
     from blazeseq_tpu_torch.ops.scan import structural_bitmaps
+    from blazeseq_tpu_torch.ops.stats import qc_stats
     from blazeseq_tpu_torch.ops.uniform_qc import uniform_qc
     from blazeseq_tpu_torch.ops.validate import validate_decode
 
     return dict(uniform_qc=uniform_qc, validate_decode=validate_decode,
                 nw_scores=nw_scores, nw_variant_scores=nw_variant_scores,
                 structural_bitmaps=structural_bitmaps,
-                ragged_qc=ragged_qc)
+                ragged_qc=ragged_qc, qc_stats=qc_stats,
+                adapter_content=adapter_content, read_hashes=read_hashes)
 
 
 def main(argv=None):
@@ -2780,6 +3003,8 @@ def main(argv=None):
     torch.cuda.synchronize()
     kscan = phase_kernel_scan(args.seed)
     torch.cuda.synchronize()
+    kpanels = phase_padded_panels(args.seed)
+    torch.cuda.synchronize()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     align = {}
 
@@ -2802,26 +3027,28 @@ def main(argv=None):
         ("run_file_device(bgzf ragged)",
          lambda: phase_bgzf_ragged(ragged(), tmp), ("ragged_qc",)),
         ("fallback", lambda: phase_fallback(args.seed, tmp),
-         ("validate_decode",)),
+         ("validate_decode", "qc_stats")),
         ("NWAligner", phase_aligner, ("nw_scores",)),
         ("NWAligner(variants)", phase_aligner_variants,
          ("nw_variant_scores",)),
         ("run_file(align_to)",
          lambda: phase_align_run_file(args.seed, *align["corpus"], align),
-         ("validate_decode", "nw_scores")),
+         ("validate_decode", "qc_stats", "nw_scores", "adapter_content",
+          "read_hashes")),
         ("device_parse",
          lambda: phase_device_parse(args.seed, ragged()),
          ("structural_bitmaps",)),
         ("cli", lambda: phase_cli(*align["corpus"], tmp),
-         ("uniform_qc", "validate_decode")),
+         ("uniform_qc", "validate_decode", "qc_stats")),
         ("mesh(nccl, 1 rank)",
          lambda: phase_mesh_nccl(args.seed, align["corpus"][0], align,
                                  kernels),
-         ("validate_decode", "nw_scores", "uniform_qc")),
+         ("validate_decode", "qc_stats", "nw_scores", "adapter_content",
+          "read_hashes", "uniform_qc")),
         ("mesh(gloo, ranks on one card)",
          lambda: phase_mesh_ranks(args.seed, *align["corpus"], align,
                                   ragged(), tmp, kernels),
-         ("validate_decode", "nw_scores", "ragged_qc")),
+         ("validate_decode", "qc_stats", "nw_scores", "ragged_qc")),
     ]
     e2e = {}
     launches = dict.fromkeys(kernels, 0)
@@ -2857,13 +3084,14 @@ def main(argv=None):
         json.dumps(kragged_notes))
     log("end to end:", json.dumps(e2e))
     log("total %.1f s" % (time.perf_counter() - t_start))
-    # no single PyTorch call computes any of the six functions, so none
+    # no single PyTorch call computes any of the nine functions, so none
     # has a library time; kernel A has one record per shape of
-    # KERNEL_A_SHAPES. The ragged and the alignment variant kernels replace
-    # XLA code (no Pallas kernel): their `replaces` name the reference's
-    # ragged_qc and its five XLA alignment variants. The variant kernel's
-    # ms, plain_ms and bound are its five modes' calls together at the
-    # example's shape, each mode's under `modes`
+    # KERNEL_A_SHAPES. The ragged, the alignment variant and the three
+    # padded-batch panel kernels replace XLA code (no Pallas kernel): their
+    # `replaces` name the reference's ragged_qc, its five XLA alignment
+    # variants, qc_stats, adapter_content and read_hashes. The variant
+    # kernel's ms, plain_ms and bound are its five modes' calls together at
+    # the example's shape, each mode's under `modes`
     print(json.dumps({"kernels": [
         dict(name="uniform_qc", route="cuda", source=KERNEL_B_SOURCE,
              replaces="blazeseq_tpu/ops/fused_qc.py:205",
@@ -2887,6 +3115,19 @@ def main(argv=None):
         dict(name="ragged_qc", route="cuda", source=KERNEL_RAGGED_SOURCE,
              replaces="blazeseq_tpu/ops/ragged_qc.py:182",
              launches=launches["ragged_qc"], library_ms=None, **kragged),
+        dict(name="qc_stats", route="cuda", source=KERNEL_QC_STATS_SOURCE,
+             replaces="blazeseq_tpu/ops/stats.py:150-241",
+             launches=launches["qc_stats"], library_ms=None,
+             **kpanels["qc_stats"]),
+        dict(name="adapter_content", route="cuda",
+             source=KERNEL_ADAPTER_SOURCE,
+             replaces="blazeseq_tpu/ops/adapter.py:62-83",
+             launches=launches["adapter_content"], library_ms=None,
+             **kpanels["adapter_content"]),
+        dict(name="read_hashes", route="cuda", source=KERNEL_HASH_SOURCE,
+             replaces="blazeseq_tpu/ops/dedup.py:41-62",
+             launches=launches["read_hashes"], library_ms=None,
+             **kpanels["read_hashes"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

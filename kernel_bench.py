@@ -30,6 +30,18 @@ compare two commits on one card). Shapes:
   zero fill (in a tree whose ragged step starts with the scan kernel,
   that kernel's time); a tree without ops/ragged_qc.py skips it.
 
+* the padded-batch panels at `run_file`'s 4,096 x 256 batch
+  (chip_smoke.PANEL_SHAPE, inputs from chip_smoke.panel_inputs):
+  `qc_stats` with the default options and with the quartile leaf (and at
+  32,768 x 1,024 with it), `adapter_content` with chip_smoke's adapter,
+  `read_hashes`, and the whole padded step (`build_qc_align_step` with
+  alignment and quartiles, then the adapter and the hashes); in a tree
+  without the panel kernels these are its torch ops;
+* the CUDA kernel launches of one `run_file(align_to, adapters,
+  duplicates, quartiles)` batch, from torch.profiler: the launches of
+  runs over 1 and over 3 padded batches of chip_smoke's planted corpus,
+  their difference over 2, and the kernels by name.
+
 Each tree with `parallel/mesh.py` also compares a
 1-rank NCCL mesh in its process with no mesh, each result equal to its
 twin's: `build_uniform_qc_step` on the kernel B chunk above (times, and
@@ -49,14 +61,15 @@ Each kernel is checked equal to its plain version first. `device_ms`
 queues the launches behind a sleeping kernel, so it is the card's time
 alone; `event_ms` times back-to-back calls with CUDA events, host launch
 cost included when the host is the slower side (both medians of 5 trials);
-`host_ms` is their difference. Kernel A, the scan kernel and the ragged
-kernels also carry `bound_ms` (chip_smoke.py's bound). Prints one JSON
+`host_ms` is their difference. Kernel A, the scan kernel, the ragged
+kernels and the panels also carry `bound_ms` (chip_smoke.py's bound). Prints one JSON
 line per tree, with the card's name and power limit. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import importlib.util
 import json
 import os
@@ -196,6 +209,8 @@ def _one_tree(tree, seed, ragged_path=False):
                           bound_ms=cs.bound(cs.nbytes(c, *got),
                                             3 * c.numel() // 4)["bound_ms"])
         del c, got
+    out.update(_panels(cs, seed))
+    out["run_file_batch_launches"] = _batch_launches(cs, seed)
     if importlib.util.find_spec("blazeseq_tpu_torch.ops.ragged_qc"):
         out["ragged_qc"] = _ragged(cs, seed)
         if ragged_path:
@@ -203,6 +218,116 @@ def _one_tree(tree, seed, ragged_path=False):
     if importlib.util.find_spec("blazeseq_tpu_torch.parallel.mesh"):
         out.update(_mesh(cs, seed, out["tree"]))
     return out
+
+
+def _leaves(st):
+    return [x for x in st if x is not None]
+
+
+def _panels(cs, seed):
+    """The padded-batch panels and the padded step at cs.PANEL_SHAPE
+    (qc_stats also at cs.PANEL_WIDE with the quartile leaf); each kernel
+    checked equal to its plain version where the tree has one."""
+    import numpy as np
+    import torch
+
+    from blazeseq_tpu_torch import parse_schema
+    from blazeseq_tpu_torch.ops import adapter as ad
+    from blazeseq_tpu_torch.ops import dedup, stats
+    from blazeseq_tpu_torch.parallel import build_qc_align_step
+
+    out = {}
+    rng = np.random.default_rng([seed, 7])
+    for n, L in (cs.PANEL_SHAPE, cs.PANEL_WIDE):
+        seq, qual, lengths, codes = cs.panel_inputs(rng, n, L)
+        d = [torch.from_numpy(a).cuda() for a in (seq, qual, lengths, codes)]
+        for q2 in (False, True) if (n, L) == cs.PANEL_SHAPE else (True,):
+            label = "qc_stats_%dx%d%s" % (n, L, "_2d" if q2 else "")
+
+            def call(fn=stats.qc_stats, q2=q2):
+                return fn(d[0], d[1], d[2], 33, n_records=n,
+                          error_codes=d[3], qual_hist_2d=q2)
+
+            if hasattr(stats, "qc_stats_torch"):
+                _same(_leaves(call()), _leaves(call(stats.qc_stats_torch)),
+                      label)
+            out[label] = dict(_times(call), bound_ms=cs.qc_stats_bound(
+                lengths, L, n, q2)["bound_ms"])
+        if (n, L) != cs.PANEL_SHAPE:
+            continue
+        label = "adapter_content_%dx%d" % (n, L)
+
+        def adapter(fn=ad.adapter_content):
+            return fn(d[0], d[2], n, adapter_host=cs.ADAPTER)
+
+        if hasattr(ad, "adapter_content_torch"):
+            _same(adapter(), adapter(ad.adapter_content_torch), label)
+        out[label] = dict(_times(adapter), bound_ms=cs.adapter_bound(
+            d[0], d[2], n, cs.ADAPTER)["bound_ms"])
+        label = "read_hashes_%dx%d" % (n, L)
+        if hasattr(dedup, "read_hashes_torch"):
+            _same((dedup.read_hashes(d[0], d[2], n),),
+                  (dedup.read_hashes_torch(d[0], d[2], n),), label)
+        out[label] = dict(_times(lambda: dedup.read_hashes(d[0], d[2], n)),
+                          bound_ms=cs.hash_bound(lengths, L, n, n)["bound_ms"])
+        kw = cs._align_kw(seed)
+        ref = torch.from_numpy(np.frombuffer(kw["align_to"], np.uint8)
+                               .copy()).cuda()
+        step = build_qc_align_step(with_alignment=True, qual_hist_2d=True)
+        sanger = parse_schema("sanger")
+
+        def padded_step():
+            step(d[0], d[1], d[2], n, sanger, ref)
+            ad.adapter_content(d[0], d[2], n, adapter_host=cs.ADAPTER)
+            dedup.read_hashes(d[0], d[2], n)
+
+        out["padded_step_%dx%d" % (n, L)] = _times(padded_step, inner=5)
+    return out
+
+
+def _batch_launches(cs, seed):
+    """CUDA kernel launches of run_file(align_to, adapters, duplicates,
+    quartiles) on 1 and on 3 padded batches of chip_smoke's planted corpus,
+    from torch.profiler (each run after a warm-up run of the same model);
+    per batch, their difference over 2, with the kernels by name. Copies
+    (Memcpy / Memset) are counted apart."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from blazeseq_tpu_torch import QCModel
+    from blazeseq_tpu_torch.constants import DEFAULT_BATCH_SIZE
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for k in (1, 3):
+            path = os.path.join(tmp, "batches%d.fastq" % k)
+            cs.write_corpus(path, DEFAULT_BATCH_SIZE * k, seed + 17,
+                            planted=True)
+            model = QCModel(device="cuda", **cs._align_kw(seed))
+            model.run_file(path)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                model.run_file(path)
+                torch.cuda.synchronize()
+            runs[k] = collections.Counter(
+                e.name for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+
+    def split(c):
+        copies = sum(v for k, v in c.items() if k.startswith("Mem"))
+        return sum(c.values()) - copies, copies
+
+    (k1, c1), (k3, c3) = split(runs[1]), split(runs[3])
+    diff = runs[3].copy()
+    diff.subtract(runs[1])
+    return dict(one_batch=dict(kernels=k1, copies=c1),
+                three_batches=dict(kernels=k3, copies=c3),
+                kernels_per_batch=(k3 - k1) / 2,
+                copies_per_batch=(c3 - c1) / 2,
+                per_batch_by_name={k: v / 2 for k, v in sorted(diff.items())
+                                   if v})
 
 
 def _trace(fn, tree, name):

@@ -79,14 +79,18 @@ def test_sources_compile_together_then_link(fake_nvcc):
 
 def test_every_kernel_source_is_built_and_bound():
     assert _kernels.SOURCES == ("validate.cu", "uniform_qc.cu", "nw.cu",
-                                "scan.cu", "ragged_qc.cu")
+                                "scan.cu", "ragged_qc.cu", "qc_stats.cu",
+                                "adapter.cu", "dedup.cu")
     for name in _kernels.SOURCES:
         assert os.path.exists(os.path.join(_kernels.CSRC, name))
     # the C entry points of each kernel source, each with its argument types
     entries = {"validate.cu": ("bs_validate_decode",),
                "uniform_qc.cu": ("bs_uniform_qc",), "nw.cu": ("bs_nw_scores",),
                "scan.cu": ("bs_structural_bitmaps",),
-               "ragged_qc.cu": ("bs_ragged_qc", "bs_ragged_qc_blocks_per_sm")}
+               "ragged_qc.cu": ("bs_ragged_qc", "bs_ragged_qc_blocks_per_sm"),
+               "qc_stats.cu": ("bs_qc_stats",),
+               "adapter.cu": ("bs_adapter_content",),
+               "dedup.cu": ("bs_read_hashes",)}
     for source, names in entries.items():
         with open(os.path.join(_kernels.CSRC, source)) as f:
             text = f.read()
