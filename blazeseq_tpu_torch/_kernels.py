@@ -68,12 +68,14 @@ _SIGNATURES = {
     # width
     "bs_ragged_qc_blocks_per_sm": (_I,),
     # seq, qual, lengths, codes, out, n, n_valid, L, col_offset, offset,
-    # reads, count_scalars, row_stats, qual_hist_2d, sm_count, stream
+    # reads, count_scalars, row_stats, qual_hist_2d, group, rows_per_block,
+    # cluster, stream
     "bs_qc_stats": (_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _I,
-                    _I, _P),
-    # seq, lengths, adapter, out, n_valid, L, la, reads_scanned, sm_count,
-    # stream
-    "bs_adapter_content": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
+                    _I, _I, _I, _P),
+    # seq, lengths, ad, ad_off, meta, out, n_valid, L, n_ad, ad_bytes,
+    # la_max, reads_scanned, stream
+    "bs_adapter_contents": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
+                            _P),
     # seq, lengths, out, n, n_valid, L, sm_count, stream
     "bs_read_hashes": (_P, _P, _P, _LL, _LL, _I, _I, _P),
 }

@@ -1,4 +1,5 @@
-// Padded-batch QC statistics for Hopper (sm_90a).
+// Padded-batch QC statistics for Hopper (sm_90a), added into a running
+// total.
 //
 // Replaces blazeseq_tpu/ops/stats.py::qc_stats, which is XLA code with no
 // Pallas kernel: every QCStats leaf of one padded batch in one launch,
@@ -12,11 +13,13 @@
 // c + col_offset < lengths[r]. On masked positions:
 //   phred = clip(qual - offset, 0, 63)   (clamps; kernel A's decode wraps)
 //   class = A, C, G, T by seq & 0xDF, else "other" (N, 0x00, high bits)
-// Output: one zero-filled int32 buffer holding the leaves in QCStats'
-// field order (Layout below); the caller makes each leaf a view of it.
-//   reads = n_records * scale (written here), bases = sum of the true
-//   lengths of the records, error_reads = records with codes != 0 (each
-//   times scale = count_scalars); base_counts, per_pos_base_counts [5, L],
+// Output: one int32 buffer holding the leaves in QCStats' field order
+// (Layout below), into which the batch is ADDED (the caller zero-fills a
+// new buffer, or passes the running total of earlier batches; int32 wraps
+// as the merge adds it replaces did):
+//   reads += n_records * scale, bases += sum of the true lengths of the
+//   records, error_reads += records with codes != 0 (each times scale =
+//   count_scalars); base_counts, per_pos_base_counts [5, L],
 //   per_pos_qual_sum [L], per_pos_count [L], qual_hist [64], gc_count;
 //   with row_stats and count_scalars the per-read panels over the
 //   in-window count cnt = clip(len - col_offset, 0, L): length_hist
@@ -30,56 +33,81 @@
 // length reaches (2 bytes a masked position) and writes a few KB, with a
 // few dozen integer operations a byte; at the host route's [4096, 256]
 // batch the 1.3 MB take well under a microsecond at full rate, so the
-// latency of a row's loads, the launch and the flush of the per-block
-// partial leaves are its time.
+// launch, one round trip to memory and the flush of the partial sums are
+// its time. At [32768, 1024] with the [64, L] leaf the flush is up to 64 x
+// L words a block.
 //
-// Design. A block owns a contiguous range of at most 512 rows, whose
-// lengths it stages in shared memory with one coalesced load. A warp
-// takes one row at a time (rows warp, warp + 8, ... of the range, four at
-// once with every load issued before any is used, so that a warp waits
-// on memory once for four rows) and covers a strip of 128 columns, a lane
-// 4 consecutive columns (one 32-bit load of seq and one of qual when
-// L % 4 == 0 and both are 4-byte aligned, else byte loads). The strips of
-// a row are walked in turn, strip-outer, so within a strip a lane always
-// holds the same 4 columns and keeps their A/C/G/T/count/Phred sums in
-// registers over all the block's rows; when the strip ends, the 8 warps'
-// sums meet in shared memory and the block adds each nonzero column of
-// the 7 x L per-position leaves with one global atomic, neighbouring
-// threads on neighbouring columns. The per-position Phred histogram of
-// the strip is privatized in shared memory (64 x 128 ints, laid out so
-// that the 32 lanes of a warp hit 32 banks whatever their values),
-// flushed by warps over its 64 rows, lanes on neighbouring columns, and
-// its row sums give qual_hist; so any L takes the 32 KB strip, and L = 1024 with
-// the [64, L] leaf needs no more shared memory than L = 128. A row's GC
-// count and Phred sum within the strip are one packed warp sum (gc | qsum
-// << 8, both bounded by the strip's 128 columns), added by the warp that
-// owns the row in every strip into its shared partials; after the last
-// strip the block's threads bin its rows into shared histograms (length,
-// GC%, mean Phred), flushed with one global atomic a nonzero bin.
+// Design. A block owns a contiguous range of at most 255 rows, whose
+// lengths (and codes) it stages with one load a thread. A row is cut into
+// 16-byte pieces and gets a group of G = min(32, next_pow2(pieces)) lanes
+// (the host picks G), so a warp holds 32 / G rows and a strip of S = 16 G
+// columns; wider rows are walked strip by strip, and within a strip a lane
+// always holds the same 16 columns. A lane loads one uint4 of seq and one
+// of qual a row (byte loads when L % 16 != 0 or a pointer is off 16-byte
+// alignment), kUnroll rows' loads issued before any is used, and counts
+// with byte-SIMD words under an in-length byte mask: __vcmpeq4 for
+// A/C/G/T, the count from the mask, clip(q - offset, 0, 63) as
+// __vminu4(__vsubus4(...)). The per-column counts stay in registers as
+// 8-bit lanes and the Phred sums as 16-bit lanes (a block's 255 rows keep
+// both in range); the row's GC and Phred sums are __popc and __dp4a, one
+// packed segmented warp sum a row. At the strip's end each warp stores its
+// packed sums with plain stores and the block's threads add the 8 warps'
+// words and unpack them once into the strip's column rows: the warps'
+// column sums once met through shared atomics, 112 a lane, which took a
+// third of the kernel's time. The Phred histogram is one shared atomic a
+// position into 64 bins; with the [64, L] leaf that atomic goes instead
+// into the strip's [64, S] counts, held as 8-bit lanes (4 columns a word,
+// so the strip fits 32 KB at S = 512 and two blocks share an SM), and the
+// histogram is the flush's row sums of them. Strip columns in shared
+// memory are XOR-swizzled so that the lanes' adds of one byte position and
+// the flush's reads of neighbouring columns each hit 32 banks.
 //
-// Every block adds its partial leaves into the same output words, so the
-// flush grows with the blocks while the rows a warp waits on shrink. A
-// first form, in which each warp added its own column sums with global
-// atomics (8 x 7 a column a block, lanes 16 bytes apart), spent most of
-// its time on the H100 in that flush; summed in shared memory first, the
-// flush is one atomic a column and leaf a block, and a block takes at
-// least 32 rows.
+// The flush. Blocks run in clusters of up to 8 (a launch attribute). When
+// a cluster's blocks have their partials in shared memory, cluster rank k
+// reads the k-th share of every block's partial words through distributed
+// shared memory, sums them, and adds each nonzero sum to the output with
+// one global atomic, neighbouring threads on neighbouring columns: a word
+// takes one atomic a cluster where it took one a block. Strips before the
+// last are flushed on their own; the last strip, the histograms and the
+// scalars together (with the [64, L] leaf the scalars and histograms after
+// the last strip, which sums the Phred histogram). The grid is as many
+// clusters as the card holds at once, each block at least kMinRows rows
+// (fewer blocks when the rows run out). The kernel's first form flushed
+// every block's partials itself (128 blocks at [4096, 256]), zeroed and
+// scanned a 32 KB per-position Phred histogram in every strip whether or
+// not the [64, L] leaf was asked for, and loaded 4 bytes a lane.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kStrip = 128;  // columns a warp covers: 32 lanes x 4
 constexpr int kPhred = 64;
 constexpr int kLenBins = 512;
 constexpr int kGcBins = 101;
-constexpr int kMinRows = 32;    // rows a block takes at least
-constexpr int kMaxRows = 512;   // rows a block takes at most
-constexpr int kRowUnroll = 4;   // rows a warp loads before it uses them
+constexpr int kMaxRows = 255;   // rows a block takes at most (8-bit sums)
+constexpr int kMinRows = 32;    // rows a block takes at least, by default
+constexpr int kUnroll = 4;      // rows a lane loads before it uses them
+constexpr int kMaxCluster = 8;  // the portable cluster size
 constexpr unsigned kFull = 0xffffffffu;
+// the reduced words of a block: the scalars and histograms ("tail": reads,
+// bases, base_counts[5], then qual_hist .. mean_qual_hist as in Layout),
+// padded to 16 bytes, then the strip's rows of S columns (A C G T other
+// qsum count, and with the [64, L] leaf its 64 Phred rows)
+constexpr int kTail = 7 + kPhred + 2 + kLenBins + kGcBins + kPhred;  // 750
+constexpr int kTailPad = 752;
+constexpr int kQualHist = 7;     // tail words
+constexpr int kGcCount = kQualHist + kPhred;
+constexpr int kErrors = kGcCount + 1;
+constexpr int kLenHist = kErrors + 1;
+constexpr int kGcHist = kLenHist + kLenBins;
+constexpr int kMqHist = kGcHist + kGcBins;
+constexpr int kColRows = 7;      // strip rows before the Phred rows
 
 // offsets of the leaves in the output buffer, in QCStats' field order
 struct Layout {
@@ -110,11 +138,11 @@ struct Args {
   const uint8_t* seq;
   const uint8_t* qual;
   const int32_t* lengths;
-  const int32_t* codes;  // null: error_reads stays 0
+  const int32_t* codes;  // null: error_reads gets nothing
   int32_t* out;
   Layout o;
   long long n_valid;
-  long long rows_per_block;
+  int rows_per_block;
   int L;
   int col_offset;
   int offset;
@@ -122,7 +150,10 @@ struct Args {
   int count_scalars;
   int do_rows;
   int qual_hist_2d;
-  int vec;  // 32-bit loads: L % 4 == 0, seq and qual 4-byte aligned
+  int vec;    // 16-byte loads: L % 16 == 0, seq and qual 16-byte aligned
+  int gbits;  // log2 of G, the lanes a row takes
+  int strip_words;  // kColRows rows of S, and with the [64, L] leaf its
+                    // 64 rows of S / 4 words of 8-bit counts
 };
 
 __device__ __forceinline__ int warp_sum(int v) {
@@ -131,241 +162,432 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
-__device__ __forceinline__ void add_nonzero(int32_t* p, int v) {
-  if (v) atomicAdd(p, v);
+// mask of the first clamp(k, 0, 4) bytes of a little-endian word
+__device__ __forceinline__ uint32_t first_bytes(int k) {
+  return k >= 4 ? kFull : (k <= 0 ? 0u : (1u << (8 * k)) - 1u);
+}
+
+// shared-memory slot of column c of a strip row (see the note above)
+__device__ __forceinline__ int swz(int c) { return c ^ ((c >> 5) & 15); }
+
+// shared-memory slot of word v (columns 4v .. 4v + 3) of a row of the
+// [64, S] Phred counts, held as 8-bit lanes: the lanes' adds of one word
+// position, and the flush's reads of neighbouring words, hit 32 banks
+__device__ __forceinline__ int swz8(int v) {
+  return (v & ~3) | ((v + (v >> 5)) & 3);
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int w) {
+  return w == 0 ? v.x : (w == 1 ? v.y : (w == 2 ? v.z : v.w));
+}
+
+// Sum the logical words [lo, hi) of the cluster's blocks and add each
+// nonzero sum to the output: rank k of the cluster takes the k-th share.
+// Logical word w < kTail is tail word w; then come the strip's kColRows
+// rows of S columns, then the [64, L] leaf's 64 rows of S / 4 words of
+// four 8-bit counts each, of the strip starting at column s0. The sums of
+// the leaf's rows go into s_qh (its Phred histogram).
+__device__ void cluster_flush(const Args& a, int* smem, int* s_qh, int lo,
+                              int hi, int s0, int S, int sbits) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every block's partials are complete
+  const int nb = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int n = hi - lo;
+  const int b = lo + (int)((long long)n * rank / nb);
+  const int e = lo + (int)((long long)n * (rank + 1) / nb);
+  const unsigned* src[kMaxCluster];
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r)
+    src[r] = reinterpret_cast<const unsigned*>(
+        cluster.map_shared_rank(smem, r < nb ? r : 0));
+  const int cols_end = kTail + kColRows * S;
+  int ph_row = -1;  // the [64, L] row whose sums `ph_sum` holds
+  unsigned ph_sum = 0;
+  for (int w = b + (int)threadIdx.x; w < e; w += kThreads) {
+    if (w < cols_end) {
+      int phys;
+      long long dst;
+      if (w < kTail) {
+        phys = w;
+        dst = w < kQualHist ? w : a.o.qual_hist + (w - kQualHist);
+      } else {
+        const int t = w - kTail;
+        const int k = t >> sbits;
+        const int c = t & (S - 1);
+        const long long col = (long long)s0 + c;
+        if (col >= a.L) continue;
+        phys = kTailPad + k * S + swz(c);
+        dst = a.o.pp_base + k * (long long)a.L + col;
+      }
+      unsigned sum = 0;
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r)
+        if (r < nb) sum += src[r][phys];
+      if (sum) atomicAdd(a.out + dst, (int)sum);
+      continue;
+    }
+    // four columns' 8-bit counts, summed as 16-bit lanes (8 x 255 fits)
+    const int t = w - cols_end;
+    const int ph = t >> (sbits - 2);
+    const int v = t & (S / 4 - 1);
+    const int phys = kTailPad + kColRows * S + ph * (S / 4) + swz8(v);
+    unsigned even = 0, odd = 0;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      if (r < nb) {
+        const unsigned x = src[r][phys];
+        even += x & 0x00FF00FFu;
+        odd += (x >> 8) & 0x00FF00FFu;
+      }
+    }
+    if (ph != ph_row) {
+      if (ph_sum) atomicAdd(&s_qh[ph_row], (int)ph_sum);
+      ph_row = ph;
+      ph_sum = 0;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const unsigned cnt = ((q & 1) ? odd : even) >> (16 * (q >> 1)) & 0xFFFFu;
+      const long long col = (long long)s0 + 4 * v + q;
+      if (cnt && col < a.L) {
+        atomicAdd(a.out + a.o.pp_hist + ph * (long long)a.L + col, (int)cnt);
+        ph_sum += cnt;
+      }
+    }
+  }
+  if (ph_sum) atomicAdd(&s_qh[ph_row], (int)ph_sum);
+  cluster.sync();  // no block reuses or leaves its words while read
 }
 
 __global__ void __launch_bounds__(kThreads) qc_stats_kernel(const Args a) {
-  __shared__ int s_pph[kPhred * kStrip];  // [phred][b][lane]: column 4 lane + b
-  __shared__ int s_pos[6][kStrip];        // the strip's A C G T count qsum
-  __shared__ int s_len[kMaxRows];         // the block's lengths
-  __shared__ int s_gc[kMaxRows];          // and their row partials
-  __shared__ int s_qs[kMaxRows];
-  __shared__ int s_qh[kPhred];
-  __shared__ int s_lenh[kLenBins];
-  __shared__ int s_gch[kGcBins];
-  __shared__ int s_mqh[kPhred];
-  __shared__ int s_tot[kWarps][7];
+  extern __shared__ __align__(16) int smem[];
+  const int G = 1 << a.gbits;
+  const int S = 16 * G;
+  const int sbits = a.gbits + 4;
+  const int R = 32 >> a.gbits;  // rows a warp holds at once
+  const int region = kTailPad + a.strip_words;
+  int* const tail = smem;
+  int* const strip = smem + kTailPad;
+  // the warps' packed column sums: [warp][28 words][G pieces]
+  uint32_t* const s_pack = reinterpret_cast<uint32_t*>(smem + region);
+  int* const s_len = smem + region + kWarps * 28 * G;  // the block's lengths
+  int* const s_gc = s_len + kMaxRows;  // and their row partials
+  int* const s_qs = s_gc + kMaxRows;
+  int* const s_qh = s_qs + kMaxRows;  // [64] from the [64, L] leaf's sums
   const long long r0 = (long long)blockIdx.x * a.rows_per_block;
-  const int rows = (int)max(min(a.n_valid - r0, a.rows_per_block), 0LL);
-  for (int i = threadIdx.x; i < kPhred * kStrip; i += kThreads) s_pph[i] = 0;
-  for (int i = threadIdx.x; i < 6 * kStrip; i += kThreads) (&s_pos[0][0])[i] = 0;
-  for (int i = threadIdx.x; i < kLenBins; i += kThreads) s_lenh[i] = 0;
-  for (int i = threadIdx.x; i < rows; i += kThreads) {
-    s_len[i] = a.lengths[r0 + i];
-    s_gc[i] = s_qs[i] = 0;
+  const int rows = (int)max(min(a.n_valid - r0, (long long)a.rows_per_block),
+                            0LL);
+  for (int i = threadIdx.x; i < region / 4; i += kThreads)
+    reinterpret_cast<int4*>(smem)[i] = make_int4(0, 0, 0, 0);
+  // rows <= kMaxRows < kThreads: a thread stages at most one row, whose
+  // code it keeps for the row panels
+  int code = 0;
+  if (threadIdx.x < rows) {
+    s_len[threadIdx.x] = a.lengths[r0 + threadIdx.x];
+    s_gc[threadIdx.x] = s_qs[threadIdx.x] = 0;
+    if (a.codes) code = a.codes[r0 + threadIdx.x];
   }
-  if (threadIdx.x < kPhred) s_qh[threadIdx.x] = s_mqh[threadIdx.x] = 0;
-  if (threadIdx.x < kGcBins) s_gch[threadIdx.x] = 0;
+  if (threadIdx.x < kPhred) s_qh[threadIdx.x] = 0;
   __syncthreads();
+  if (blockIdx.x == 0 && threadIdx.x == 0) tail[0] = a.reads;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int p = lane & (G - 1);  // this lane's piece of the strip
+  const int sub = lane >> a.gbits;  // its row among the warp's R
   const int L = a.L;
-  const int nstrips = (L + kStrip - 1) / kStrip;
+  const int nstrips = max(1, (L + S - 1) / S);
+  // q - offset saturating at 0 (at 255 for an offset below 0) per byte
+  const bool neg = a.offset < 0;
+  const uint32_t off4 =
+      0x01010101u * (uint32_t)min(neg ? -max(a.offset, -255) : a.offset, 255);
   // this thread's share of base_counts (A C G T other)
   int tot[5] = {0, 0, 0, 0, 0};
 
   for (int s = 0; s < nstrips; ++s) {
-    const int c0 = s * kStrip + 4 * lane;  // this lane's first column
-    int nA[4] = {0, 0, 0, 0}, nC[4] = {0, 0, 0, 0}, nG[4] = {0, 0, 0, 0};
-    int nT[4] = {0, 0, 0, 0}, nc[4] = {0, 0, 0, 0}, nq[4] = {0, 0, 0, 0};
-    // rows warp, warp + 8, ... of the block, kRowUnroll at a time with
-    // every load issued before any is used (warp-uniform)
-    for (int i0 = warp; i0 < rows; i0 += kRowUnroll * kWarps) {
-      uint32_t sw[kRowUnroll], qw[kRowUnroll];
-      int k[kRowUnroll];  // masked columns among the lane's 4
+    const int c0 = s * S + 16 * p;  // this lane's first column
+    // per column of the lane's 16: counts as 8-bit lanes, Phred sums of
+    // the even and odd bytes as 16-bit lanes, one word per 4 columns (a
+    // block's rows, at most 255, keep every lane in range)
+    uint32_t acc[7][4];  // A C G T count, phred even, phred odd
 #pragma unroll
-      for (int u = 0; u < kRowUnroll; ++u) {
-        const int i = i0 + u * kWarps;
-        sw[u] = qw[u] = 0;
+    for (int r = 0; r < 7; ++r)
+#pragma unroll
+      for (int w = 0; w < 4; ++w) acc[r][w] = 0;
+    // the warp's rows: R at once (one a sub-group), kUnroll groups of
+    // them with every load issued before any is used (warp-uniform)
+    for (int i0 = warp * R; i0 < rows; i0 += kUnroll * kWarps * R) {
+      uint4 sv[kUnroll], qv[kUnroll];
+      int k[kUnroll];  // in-mask columns among the lane's 16
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = i0 + u * kWarps * R + sub;
+        sv[u] = qv[u] = make_uint4(0, 0, 0, 0);
         k[u] = 0;
         if (i < rows) {
           const long long lim =
               min((long long)s_len[i] - a.col_offset, (long long)L);
-          k[u] = (int)max(min(lim - c0, 4LL), 0LL);
+          k[u] = (int)max(min(lim - c0, 16LL), 0LL);
         }
         if (k[u] > 0) {
           const long long at = (r0 + i) * L + c0;
           if (a.vec) {
-            sw[u] = *reinterpret_cast<const uint32_t*>(a.seq + at);
-            qw[u] = *reinterpret_cast<const uint32_t*>(a.qual + at);
+            sv[u] = __ldg(reinterpret_cast<const uint4*>(a.seq + at));
+            qv[u] = __ldg(reinterpret_cast<const uint4*>(a.qual + at));
           } else {
+            uint32_t sw[4] = {0, 0, 0, 0}, qw[4] = {0, 0, 0, 0};
 #pragma unroll
-            for (int b = 0; b < 4; ++b) {
+            for (int b = 0; b < 16; ++b) {
               if (b < k[u]) {
-                sw[u] |= (uint32_t)a.seq[at + b] << (8 * b);
-                qw[u] |= (uint32_t)a.qual[at + b] << (8 * b);
+                sw[b >> 2] |= (uint32_t)a.seq[at + b] << (8 * (b & 3));
+                qw[b >> 2] |= (uint32_t)a.qual[at + b] << (8 * (b & 3));
               }
+            }
+            sv[u] = make_uint4(sw[0], sw[1], sw[2], sw[3]);
+            qv[u] = make_uint4(qw[0], qw[1], qw[2], qw[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (i0 + u * kWarps * R >= rows) break;  // warp-uniform
+        const int i = i0 + u * kWarps * R + sub;
+        int part = 0;  // gc | phred sum << 16 of the row's piece
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const int kw = k[u] - 4 * w;
+          if (kw <= 0) break;
+          const uint32_t m = first_bytes(kw);
+          const uint32_t sb = word_of(sv[u], w) & 0xDFDFDFDFu;
+          const uint32_t eqA = __vcmpeq4(sb, 0x41414141u) & m;
+          const uint32_t eqC = __vcmpeq4(sb, 0x43434343u) & m;
+          const uint32_t eqG = __vcmpeq4(sb, 0x47474747u) & m;
+          const uint32_t eqT = __vcmpeq4(sb, 0x54545454u) & m;
+          const uint32_t qb = word_of(qv[u], w);
+          const uint32_t ph =
+              __vminu4(neg ? __vaddus4(qb, off4) : __vsubus4(qb, off4),
+                       0x3F3F3F3Fu) & m;
+          acc[0][w] += eqA & 0x01010101u;
+          acc[1][w] += eqC & 0x01010101u;
+          acc[2][w] += eqG & 0x01010101u;
+          acc[3][w] += eqT & 0x01010101u;
+          acc[4][w] += m & 0x01010101u;
+          acc[5][w] += ph & 0x00FF00FFu;
+          acc[6][w] += (ph >> 8) & 0x00FF00FFu;
+          part += __popc((eqC | eqG) & 0x01010101u) +
+                  (__dp4a((int)ph, 0x01010101, 0) << 16);
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            if (b < kw) {
+              const int q = (int)((ph >> (8 * b)) & 0xFFu);
+              if (a.qual_hist_2d)
+                atomicAdd(&strip[kColRows * S + q * (S / 4) +
+                                 swz8(4 * p + w)],
+                          1 << (8 * b));
+              else
+                atomicAdd(&tail[kQualHist + q], 1);
             }
           }
         }
-      }
-#pragma unroll
-      for (int u = 0; u < kRowUnroll; ++u) {
-        const int i = i0 + u * kWarps;
-        if (i >= rows) break;  // warp-uniform
-        int part = 0;          // gc | phred sum << 8
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          if (b < k[u]) {
-            const uint32_t c = (sw[u] >> (8 * b)) & 0xDFu;
-            const int q = (int)((qw[u] >> (8 * b)) & 0xFFu);
-            const int ph = min(max(q - a.offset, 0), kPhred - 1);
-            nA[b] += c == 'A';
-            nC[b] += c == 'C';
-            nG[b] += c == 'G';
-            nT[b] += c == 'T';
-            nc[b] += 1;
-            nq[b] += ph;
-            atomicAdd(&s_pph[ph * kStrip + b * 32 + lane], 1);
-            part += (int)(c == 'C' || c == 'G') + (ph << 8);
-          }
-        }
         if (a.do_rows) {
-          part = warp_sum(part);
-          if (lane == 0) {  // row i is this warp's in every strip
-            s_gc[i] += part & 0xFF;
-            s_qs[i] += part >> 8;
+#pragma unroll
+          for (int o = 1; o < 32; o <<= 1)
+            if (o < G) part += __shfl_xor_sync(kFull, part, o);
+          if (p == 0 && i < rows) {  // row i is this lane's in every strip
+            s_gc[i] += part & 0xFFFF;
+            s_qs[i] += part >> 16;
           }
         }
       }
     }
-    // the warps' column sums into the block's (8 warps, one set of
-    // columns), then one global atomic a nonzero value, neighbouring
-    // threads on neighbouring columns
+    // the warp's row groups into one (lanes with the same piece), stored
+    // with plain stores; then the block's threads sum the 8 warps' packed
+    // words and write the strip's column rows
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int c = 4 * lane + b;
-      if (nc[b]) {
-        atomicAdd(&s_pos[0][c], nA[b]);
-        atomicAdd(&s_pos[1][c], nC[b]);
-        atomicAdd(&s_pos[2][c], nG[b]);
-        atomicAdd(&s_pos[3][c], nT[b]);
-        atomicAdd(&s_pos[4][c], nc[b]);
-        atomicAdd(&s_pos[5][c], nq[b]);
-      }
-      tot[0] += nA[b];
-      tot[1] += nC[b];
-      tot[2] += nG[b];
-      tot[3] += nT[b];
-      tot[4] += nc[b] - nA[b] - nC[b] - nG[b] - nT[b];
+    for (int o = 16; o; o >>= 1) {
+      if (o < G) break;
+#pragma unroll
+      for (int r = 0; r < 7; ++r)
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+          acc[r][w] += __shfl_xor_sync(kFull, acc[r][w], o);
     }
-    __syncthreads();  // the strip's sums and Phred histogram are complete
-    if (threadIdx.x < kStrip) {
-      const int c = threadIdx.x;
-      const long long col = (long long)s * kStrip + c;
-      const int cnt = s_pos[4][c];
-      if (cnt) {  // so col < L
-        int32_t* pb = a.out + a.o.pp_base + col;
-        int known = 0;
+    if (sub == 0) {
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          add_nonzero(pb + k * (long long)L, s_pos[k][c]);
-          known += s_pos[k][c];
-        }
-        add_nonzero(pb + 4LL * L, cnt - known);  // other
-        add_nonzero(a.out + a.o.pp_qsum + col, s_pos[5][c]);
-        atomicAdd(a.out + a.o.pp_count + col, cnt);
-      }
+      for (int r = 0; r < 7; ++r)
 #pragma unroll
-      for (int k = 0; k < 6; ++k) s_pos[k][c] = 0;
+        for (int w = 0; w < 4; ++w)
+          s_pack[(warp * 28 + 4 * r + w) * G + p] = acc[r][w];
     }
-    for (int ph = warp; ph < kPhred; ph += kWarps) {
-      int sum = 0;
+    __syncthreads();
+    if (threadIdx.x < 4 * G) {  // one (piece, word) a thread
+      const int pp = threadIdx.x % G;
+      const int w = threadIdx.x / G;
+      uint32_t sum[7] = {0, 0, 0, 0, 0, 0, 0};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // column cc = lane + 32 j of the strip, held at [cc % 4][cc / 4]
-        const int cc = lane + 32 * j;
-        int* p = &s_pph[ph * kStrip + (cc & 3) * 32 + (cc >> 2)];
-        const int v = *p;
-        if (v) {
-          sum += v;
-          *p = 0;
-          if (a.qual_hist_2d)
-            atomicAdd(a.out + a.o.pp_hist + (long long)ph * L +
-                          (long long)s * kStrip + cc,
-                      v);
-        }
+      for (int v = 0; v < kWarps; ++v)
+#pragma unroll
+        for (int r = 0; r < 7; ++r)
+          sum[r] += s_pack[(v * 28 + 4 * r + w) * G + pp];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int sh = 8 * b;
+        const int na = (int)((sum[0] >> sh) & 0xFFu);
+        const int nc = (int)((sum[1] >> sh) & 0xFFu);
+        const int ng = (int)((sum[2] >> sh) & 0xFFu);
+        const int nt = (int)((sum[3] >> sh) & 0xFFu);
+        const int cnt = (int)((sum[4] >> sh) & 0xFFu);
+        const int nq = (int)(((b & 1) ? sum[6] : sum[5]) >> (16 * (b >> 1))
+                             & 0xFFFFu);
+        const int other = cnt - na - nc - ng - nt;
+        const int col = swz(16 * pp + 4 * w + b);
+        strip[0 * S + col] = na;
+        strip[1 * S + col] = nc;
+        strip[2 * S + col] = ng;
+        strip[3 * S + col] = nt;
+        strip[4 * S + col] = other;
+        strip[5 * S + col] = nq;
+        strip[6 * S + col] = cnt;
+        tot[0] += na;
+        tot[1] += nc;
+        tot[2] += ng;
+        tot[3] += nt;
+        tot[4] += other;
       }
-      sum = warp_sum(sum);
-      if (lane == 0) s_qh[ph] += sum;  // one warp owns each phred row
     }
-    __syncthreads();  // zeroed before the next strip
+    const bool last = s + 1 == nstrips;
+    if (!last || a.qual_hist_2d) {
+      // the strip alone: with the [64, L] leaf the tail waits for the
+      // Phred histogram its flush sums
+      cluster_flush(a, smem, s_qh, kTail, kTail + a.strip_words, s * S, S,
+                    sbits);
+      if (a.qual_hist_2d && !last) {
+        for (int i = threadIdx.x; i < kPhred * S / 16; i += kThreads)
+          reinterpret_cast<int4*>(strip + kColRows * S)[i] =
+              make_int4(0, 0, 0, 0);
+        __syncthreads();
+      }
+    } else {
+      __syncthreads();  // the row partials are complete
+    }
   }
 
   // the per-record scalars and panels of the block's rows
   int bases = 0, errs = 0;
-  if (a.count_scalars) {
-    for (int i = threadIdx.x; i < rows; i += kThreads) {
-      const int len = s_len[i];
-      bases = (int)((unsigned)bases + (unsigned)len);  // wraps as int32
-      if (a.codes) errs += a.codes[r0 + i] != 0;
-      if (a.do_rows) {
-        atomicAdd(&s_lenh[min(max(len, 0), kLenBins - 1)], 1);
-        const long long cnt =
-            min(max((long long)len - a.col_offset, 0LL), (long long)L);
-        if (cnt > 0) {
-          const int c = (int)cnt;
-          atomicAdd(&s_gch[(200 * s_gc[i] + c) / (2 * c)], 1);
-          atomicAdd(&s_mqh[min((2 * s_qs[i] + c) / (2 * c), kPhred - 1)], 1);
-        }
+  const int i = threadIdx.x;
+  if (a.count_scalars && i < rows) {
+    const int len = s_len[i];
+    bases = len;
+    errs = code != 0;
+    if (a.do_rows) {
+      atomicAdd(&tail[kLenHist + min(max(len, 0), kLenBins - 1)], 1);
+      const long long cnt =
+          min(max((long long)len - a.col_offset, 0LL), (long long)L);
+      if (cnt > 0) {
+        const int c = (int)cnt;
+        atomicAdd(&tail[kGcHist + (200 * s_gc[i] + c) / (2 * c)], 1);
+        atomicAdd(&tail[kMqHist + min((2 * s_qs[i] + c) / (2 * c),
+                                      kPhred - 1)],
+                  1);
       }
     }
   }
-
-  // block totals, then one global atomic a nonzero value
+  if (a.qual_hist_2d && threadIdx.x < kPhred && s_qh[threadIdx.x])
+    atomicAdd(&tail[kQualHist + threadIdx.x], s_qh[threadIdx.x]);
   int v[7] = {tot[0], tot[1], tot[2], tot[3], tot[4], bases, errs};
 #pragma unroll
-  for (int i = 0; i < 7; ++i) v[i] = warp_sum(v[i]);
+  for (int j = 0; j < 7; ++j) v[j] = warp_sum(v[j]);  // int32 wraps
   if (lane == 0) {
 #pragma unroll
-    for (int i = 0; i < 7; ++i) s_tot[warp][i] = v[i];
+    for (int j = 0; j < 5; ++j)
+      if (v[j]) atomicAdd(&tail[2 + j], v[j]);
+    if (v[1] + v[2]) atomicAdd(&tail[kGcCount], v[1] + v[2]);
+    if (v[5]) atomicAdd(&tail[1], v[5]);
+    if (v[6]) atomicAdd(&tail[kErrors], v[6]);
   }
-  __syncthreads();
-  if (threadIdx.x < 8) {
-    int t = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      t += threadIdx.x < 7 ? s_tot[w][threadIdx.x]
-                           : s_tot[w][1] + s_tot[w][2];  // C + G
-    }
-    const long long dst = threadIdx.x < 5    ? a.o.base_counts + threadIdx.x
-                          : threadIdx.x == 5 ? a.o.bases
-                          : threadIdx.x == 6 ? a.o.error_reads
-                                             : a.o.gc_count;
-    add_nonzero(a.out + dst, t);
-  }
-  for (int i = threadIdx.x; i < kPhred; i += kThreads) {
-    add_nonzero(a.out + a.o.qual_hist + i, s_qh[i]);
-    add_nonzero(a.out + a.o.mq_hist + i, s_mqh[i]);
-  }
-  for (int i = threadIdx.x; i < kLenBins; i += kThreads)
-    add_nonzero(a.out + a.o.len_hist + i, s_lenh[i]);
-  for (int i = threadIdx.x; i < kGcBins; i += kThreads)
-    add_nonzero(a.out + a.o.gc_hist + i, s_gch[i]);
-  if (blockIdx.x == 0 && threadIdx.x == 0) a.out[a.o.reads] = a.reads;
+  if (a.qual_hist_2d)
+    cluster_flush(a, smem, s_qh, 0, kTail, 0, S, sbits);
+  else
+    cluster_flush(a, smem, s_qh, 0, kTail + a.strip_words,
+                  (nstrips - 1) * S, S, sbits);
+}
+
+// dynamic shared memory of a block: the reduced words, then the staged
+// lengths and row partials
+int strip_words(int G, int qual_hist_2d) {
+  return kColRows * 16 * G + (qual_hist_2d ? kPhred * 4 * G : 0);
+}
+
+int smem_bytes(int G, int qual_hist_2d) {
+  return 4 * (kTailPad + strip_words(G, qual_hist_2d) + kWarps * 28 * G +
+              3 * kMaxRows + kPhred);
 }
 
 }  // namespace
 
-// out: int32[Layout::total] (ops/stats.py lays the leaves out alike),
-// zero-filled by the caller. reads: the value of the reads leaf.
+// out: int32[Layout::total] (ops/stats.py lays the leaves out alike); the
+// batch is added into it. reads: what the reads leaf gets. group: the
+// lanes a row takes (a power of two, 1 to 32). rows_per_block and cluster:
+// 0 for the kernel's own choice (a sweep may set them; cluster a power of
+// two up to 8).
 extern "C" int bs_qc_stats(const uint8_t* seq, const uint8_t* qual,
                            const int32_t* lengths, const int32_t* codes,
                            int32_t* out, long long n, long long n_valid,
                            int L, int col_offset, int offset, int reads,
                            int count_scalars, int row_stats, int qual_hist_2d,
-                           int sm_count, void* stream) {
-  if (n < 0 || L < 0 || n_valid < 0 || n_valid > n)
+                           int group, int rows_per_block, int cluster,
+                           void* stream) {
+  if (n < 0 || L < 0 || n_valid < 0 || n_valid > n || group < 1 ||
+      group > 32 || (group & (group - 1)) || rows_per_block < 0 ||
+      rows_per_block > kMaxRows || cluster < 0 || cluster > kMaxCluster ||
+      (cluster & (cluster - 1)))
     return (int)cudaErrorInvalidValue;
-  const bool aligned = ((uintptr_t)seq | (uintptr_t)qual) % 4 == 0;
-  // at least kMinRows rows a block (the flush costs the same whatever the
-  // rows), at most kMaxRows (the staged lengths and row partials)
-  long long blocks = (n_valid + kMinRows - 1) / kMinRows;
-  if (blocks > 2LL * sm_count) blocks = 2LL * sm_count;
-  const long long fewest = (n_valid + kMaxRows - 1) / kMaxRows;
-  if (blocks < fewest) blocks = fewest;
-  if (blocks < 1) blocks = 1;  // block 0 writes `reads`
+  const int smem = smem_bytes(group, qual_hist_2d);
+  static int smem_set = 0;  // the opt-in above 48 KB, made once
+  if (smem > 48 * 1024 && smem > smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        qc_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
+  }
+  int cl = cluster ? cluster : kMaxCluster;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  long long rpb = rows_per_block;
+  if (!rpb) {
+    // as many clusters as the card holds at once, each block at least
+    // kMinRows rows; the answer depends only on (smem, cluster)
+    static int cached_smem[kMaxCluster + 1], cached_clusters[kMaxCluster + 1];
+    if (cached_smem[cl] != smem) {
+      cfg.gridDim = dim3(cl);
+      int held = 0;
+      const cudaError_t e =
+          cudaOccupancyMaxActiveClusters(&held, qc_stats_kernel, &cfg);
+      if (e != cudaSuccess) return (int)e;
+      cached_clusters[cl] = held > 0 ? held : 1;
+      cached_smem[cl] = smem;
+    }
+    const long long most = (long long)cached_clusters[cl] * cl;
+    rpb = (n_valid + most - 1) / most;
+    if (rpb < kMinRows) rpb = kMinRows;
+    if (rpb > kMaxRows) rpb = kMaxRows;
+  }
+  long long blocks = (n_valid + rpb - 1) / rpb;
+  if (blocks < 1) blocks = 1;  // block 0 adds `reads`
+  while (cl > 1 && cl > blocks) cl >>= 1;
+  blocks = (blocks + cl - 1) / cl * cl;
+  attr[0].val.clusterDim.x = (unsigned)cl;
+  cfg.gridDim = dim3((unsigned)blocks);
   Args a;
   a.seq = seq;
   a.qual = qual;
@@ -374,7 +596,7 @@ extern "C" int bs_qc_stats(const uint8_t* seq, const uint8_t* qual,
   a.out = out;
   a.o = layout(L, qual_hist_2d);
   a.n_valid = n_valid;
-  a.rows_per_block = (n_valid + blocks - 1) / blocks;
+  a.rows_per_block = (int)rpb;
   a.L = L;
   a.col_offset = col_offset;
   a.offset = offset;
@@ -382,7 +604,11 @@ extern "C" int bs_qc_stats(const uint8_t* seq, const uint8_t* qual,
   a.count_scalars = count_scalars;
   a.do_rows = row_stats && count_scalars;
   a.qual_hist_2d = qual_hist_2d;
-  a.vec = L % 4 == 0 && aligned;
-  qc_stats_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
+  a.vec = L % 16 == 0 &&
+          ((uintptr_t)seq | (uintptr_t)qual) % 16 == 0;
+  a.gbits = __builtin_ctz((unsigned)group);
+  a.strip_words = strip_words(group, qual_hist_2d);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, qc_stats_kernel, a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

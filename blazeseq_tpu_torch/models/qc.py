@@ -71,7 +71,7 @@ from ..constants import DEFAULT_BATCH_SIZE
 from ..fastq.parser import FastqParser, ParserConfig
 from ..fastq.quality import QualitySchema, parse_schema
 from ..io.readers import MemoryReader, MmapReader, open_reader
-from ..ops.adapter import adapter_content
+from ..ops.adapter import _adapter_contents
 from ..ops.common import resolve_device, round_up
 from ..ops.dedup import (duplication_levels, overrepresented_sequences,
                          read_hashes)
@@ -329,13 +329,14 @@ class QCModel:
             pad_n = round_up(pad_n, mesh.size())
         acc = QCAccumulator()
         # device-resident running total, flushed to the host every
-        # _FLUSH_EVERY batches (int32 leaves stay far from overflow)
+        # _FLUSH_EVERY batches (int32 leaves stay far from overflow); the
+        # one-device step adds each batch into it, the dp x sp mesh step
+        # merges its collectives' result
         dev_total = None
         pending = 0
         scores = [] if self.align_to is not None else None
         counts = []  # records in each batch
-        ad_totals = ({a: None for a in self.adapters}
-                     if self.adapters else None)
+        ad_totals = None  # one AdapterStats an adapter, a running total
         dup_hashes = [] if self.track_duplicates else None
         dup_prefixes = []
         dup_seen = 0
@@ -353,9 +354,14 @@ class QCModel:
                 # step this block's
                 n_step = n if sp else _local_record_count(
                     seq.shape[0], n, axis_index(mesh, DP_AXIS))
-            res = step(seq, qual, lengths, n_step, self.schema, ref)
-            dev_total = (res.stats if dev_total is None
-                         else dev_total.merge(res.stats))
+            if sp:
+                res = step(seq, qual, lengths, n_step, self.schema, ref)
+                dev_total = (res.stats if dev_total is None
+                             else dev_total.merge(res.stats))
+            else:
+                res = step(seq, qual, lengths, n_step, self.schema, ref,
+                           out=dev_total)
+                dev_total = res.stats
             pending += 1
             if pending >= _FLUSH_EVERY:
                 acc.add(dev_total)
@@ -364,13 +370,11 @@ class QCModel:
             if scores is not None:
                 scores.append(res.nw_scores)
                 counts.append(n)
-            if ad_totals is not None:
+            if self.adapters:
                 rows, lens, n_rows = self._rank_rows(pb, seq, lengths,
                                                      n_step)
-                for a in self.adapters:
-                    ast = adapter_content(rows, lens, n_rows, adapter_host=a)
-                    ad_totals[a] = (ast if ad_totals[a] is None
-                                    else ad_totals[a].merge(ast))
+                ad_totals = _adapter_contents(rows, lens, n_rows,
+                                              self.adapters, out=ad_totals)
             if dup_hashes is not None and dup_seen < self.dup_track_limit:
                 take = min(n, self.dup_track_limit - dup_seen)
                 if mesh is None:
@@ -399,10 +403,12 @@ class QCModel:
             extra["nw_scores"] = torch.cat(
                 [s[:k] for s, k in zip(scores, counts)]).cpu().numpy()
         if ad_totals is not None:
-            extra["adapter_stats"] = {
-                a: (st if mesh is None else psum_tuple(
+            panels = extra["adapter_stats"] = {}
+            for a, st in zip(self.adapters, ad_totals):
+                st = (st if mesh is None else psum_tuple(
                     mesh, st, mesh.mesh_dim_names)).to_numpy()
-                for a, st in ad_totals.items() if st is not None}
+                # an adapter listed twice counts twice, as in the reference
+                panels[a] = st if a not in panels else panels[a].merge(st)
         if dup_hashes is not None:
             extra.update(self._dup_report(dup_hashes, dup_prefixes))
         return self._report_from_acc(acc, **extra)
@@ -935,14 +941,22 @@ class QCModel:
 
     def _host_consume(self, parser, acc) -> None:
         """Host route: structure-only host parse into padded batches, then
-        validation + stats on the device (parallel/pipeline.py)."""
+        validation + stats on the device (parallel/pipeline.py), added
+        into a device-resident total that goes to `acc` every
+        _FLUSH_EVERY batches."""
+        total, pending = None, 0
         for pb in parser.padded_batches(self.batch_size,
                                         max_len=self.max_read_len,
                                         pad_records_to=self.batch_size):
-            res = self._step(*self._upload(pb), int(pb.n_records),
-                             self.schema)
-            acc.add(res.stats)
+            total = self._step(*self._upload(pb), int(pb.n_records),
+                               self.schema, out=total).stats
+            pending += 1
+            if pending >= _FLUSH_EVERY:
+                acc.add(total)
+                total, pending = None, 0
             self.tier_chunks["host"] += 1
+        if total is not None:
+            acc.add(total)
 
     def _report_from_acc(self, acc, **extra) -> QCReport:
         """The report from the host totals: the core panels, the quartile

@@ -7,7 +7,10 @@ small, and cross-batch totals are accumulated on the host in int64 by
 addition. The reference's `qc_stats` is jnp outside any Pallas kernel; here
 `qc_stats_torch` is its plain torch version, and `qc_stats` dispatches on
 the tensors' device: CPU tensors take the plain version, CUDA tensors the
-hand-written kernel in csrc/qc_stats.cu, or the call raises.
+hand-written kernel in csrc/qc_stats.cu, or the call raises. The
+dispatcher's leaves are views of one int32 buffer (`_layout`), and
+`qc_stats(..., out=total)` adds a batch into such a buffer in place: a
+running total over many batches with no zero fill or merge per batch.
 """
 
 from __future__ import annotations
@@ -57,8 +60,12 @@ class QCStats(NamedTuple):
     def to_numpy(self) -> "QCStats":
         """The leaves as int64 numpy arrays, brought to the host in one
         device-to-host copy (None stays None)."""
-        flat = torch.cat([torch.as_tensor(a).reshape(-1).to(torch.int64)
-                          for a in self if a is not None]).cpu().numpy()
+        base = _flat_buffer(self)
+        if base is not None:  # the leaves are views of one buffer
+            flat = base.cpu().numpy().astype(np.int64)
+        else:
+            flat = torch.cat([torch.as_tensor(a).reshape(-1).to(torch.int64)
+                              for a in self if a is not None]).cpu().numpy()
         out, pos = [], 0
         for a in self:
             if a is None:
@@ -235,32 +242,115 @@ def _layout(L: int, qual_hist_2d: bool):
     return tuple((s, 0 if s is None else math.prod(s)) for s in shapes)
 
 
+def _views(flat, layout) -> QCStats:
+    """The leaves as views of `flat`, in the layout's order."""
+    parts = flat.split([k for _, k in layout])
+    return QCStats(*(None if shape is None else
+                     part if len(shape) == 1 else part.view(shape)
+                     for (shape, _), part in zip(layout, parts)))
+
+
+def _flat_buffer(st):
+    """The int32 buffer whose views in `_layout` order are st's leaves, or
+    None when they are not."""
+    if not all(a is None or isinstance(a, torch.Tensor) for a in st):
+        return None
+    base = st.reads._base
+    pc = st.per_pos_count
+    if base is None or base.dtype != torch.int32 or base.dim() != 1 \
+            or pc.dim() != 1:
+        return None
+    layout = _layout(pc.shape[0], st.per_pos_qual_hist is not None)
+    if base.numel() != sum(k for _, k in layout):
+        return None
+    pos = base.storage_offset()
+    for leaf, (shape, k) in zip(st, layout):
+        if shape is None:
+            continue
+        if leaf._base is not base or tuple(leaf.shape) != shape \
+                or leaf.storage_offset() != pos or not leaf.is_contiguous():
+            return None
+        pos += k
+    return base
+
+
+# the last running total that passed `_total_buffer`: (out, (L,
+# qual_hist_2d, device), its buffer); a batch loop passes the same one
+# every call
+_checked_total = [None, None, None]
+
+
+def _total_buffer(out, L: int, qual_hist_2d: bool, device):
+    """The buffer of a running total `out` for an [n, L] batch on `device`,
+    or ValueError unless out's leaves are views of one int32 buffer there
+    in the layout of (L, qual_hist_2d), as qc_stats returns them."""
+    seen = _checked_total
+    key = (L, qual_hist_2d, device)
+    if out is seen[0] and key == seen[1]:
+        return seen[2]
+    if not isinstance(out, QCStats):
+        raise ValueError("qc_stats: out must be a QCStats, got %s"
+                         % type(out).__name__)
+    if (out.per_pos_qual_hist is not None) != qual_hist_2d:
+        raise ValueError("qc_stats: out %s the [64, L] leaf and "
+                         "qual_hist_2d=%s" % (
+                             "has" if qual_hist_2d is False else "lacks",
+                             qual_hist_2d))
+    width = getattr(out.per_pos_count, "shape", (None,))[-1]
+    if width != L:
+        raise ValueError("qc_stats: out is %s columns wide, the batch %d"
+                         % (width, L))
+    base = _flat_buffer(out)
+    if base is None:
+        raise ValueError("qc_stats: out's leaves must be views of one int32 "
+                         "buffer, as qc_stats returns them")
+    if base.device != device:
+        raise ValueError("qc_stats: out is on %s, the batch on %s"
+                         % (base.device, device))
+    seen[:] = [out, key, base]
+    return base
+
+
+@functools.cache
+def _group(L: int) -> int:
+    """The lanes the kernel gives a row: one a 16-byte piece, a power of
+    two, at most a warp."""
+    pieces = max(1, -(-L // 16))
+    return min(32, 1 << (pieces - 1).bit_length())
+
+
 def _qc_stats_cuda(seq, qual, lengths, offset, n_records, error_codes,
-                   col_offset, count_scalars, row_stats, qual_hist_2d):
+                   col_offset, count_scalars, row_stats, qual_hist_2d, out,
+                   rows_per_block=0, cluster=0):
+    """The kernel's launch. rows_per_block and cluster (0: the kernel's
+    own choice) are for a sweep of its grid."""
     check_cuda_batch("qc_stats", [("seq", seq), ("qual", qual)],
                      [("lengths", lengths), ("error_codes", error_codes)])
     n, L = seq.shape
     dev = seq.device
-    layout = _layout(L, bool(qual_hist_2d))
-    sizes = [k for _, k in layout]
-    # every leaf a view of one buffer: one zero fill, one launch
-    flat = torch.zeros(sum(sizes), dtype=torch.int32, device=dev)
-    leaves = QCStats(*(None if shape is None else
-                       part if len(shape) == 1 else part.view(shape)
-                       for (shape, _), part in zip(layout, flat.split(sizes))))
+    qual_hist_2d = bool(qual_hist_2d)
+    layout = _layout(L, qual_hist_2d)
+    if out is None:
+        # every leaf a view of one buffer: one zero fill, one launch
+        flat = torch.zeros(sum(k for _, k in layout), dtype=torch.int32,
+                           device=dev)
+        leaves = _views(flat, layout)
+    else:
+        flat = _total_buffer(out, L, qual_hist_2d, dev)
+        leaves = out
     n_rec = n if n_records is None else int(n_records)
     reads = n_rec if count_scalars else 0
     if n == 0:
         if reads:
-            flat[0] = reads
+            flat[0] += reads
         return leaves
     lib = _kernels.load()
     args = (seq.data_ptr(), qual.data_ptr(), lengths.data_ptr(),
             None if error_codes is None else error_codes.data_ptr(),
             flat.data_ptr(), n, min(n, max(n_rec, 0)), L, int(col_offset),
             int(offset), reads, int(bool(count_scalars)),
-            int(bool(row_stats)), int(bool(qual_hist_2d)),
-            _kernels.sm_count(dev.index), _kernels.stream_ptr(dev))
+            int(bool(row_stats)), int(qual_hist_2d), _group(L),
+            rows_per_block, cluster, _kernels.stream_ptr(dev))
     with _kernels.on_device(dev):
         err = lib.bs_qc_stats(*args)
     _kernels.check(err, "bs_qc_stats")
@@ -271,7 +361,7 @@ def _qc_stats_cuda(seq, qual, lengths, offset, n_records, error_codes,
 def qc_stats(seq, qual, lengths, offset: int, n_records=None,
              error_codes=None, col_offset=0,
              count_scalars: bool = True, row_stats: bool = True,
-             qual_hist_2d: bool = False) -> QCStats:
+             qual_hist_2d: bool = False, *, out=None) -> QCStats:
     """QCStats for one padded batch seq, qual u8[n, L], lengths int32[n].
 
     `n_records` (a host int) separates genuine records from padding rows.
@@ -280,14 +370,28 @@ def qc_stats(seq, qual, lengths, offset: int, n_records=None,
     scalars and per-read panels (reads, bases, error_reads, the three row
     histograms), for every column slice but the first. CPU tensors run
     `qc_stats_torch`; CUDA tensors run the kernel (counted in
-    `qc_stats.launches`) or raise."""
+    `qc_stats.launches`) or raise. The leaves returned are views of one
+    int32 buffer.
+
+    `out`, a QCStats returned by an earlier call on a batch of the same
+    width and `qual_hist_2d`, on the same device: the batch is added into
+    it in place (int32 wraps, as QCStats.merge does) and `out` is
+    returned. Another width or `qual_hist_2d`, or leaves that are not
+    views of one such buffer, raise ValueError."""
     args = (seq, qual, lengths, offset, n_records, error_codes, col_offset,
             count_scalars, row_stats, qual_hist_2d)
     if seq.is_cuda:
-        return _qc_stats_cuda(*args)
+        return _qc_stats_cuda(*args, out)
     if seq.device.type != "cpu":
         raise ValueError("qc_stats: unsupported device %s" % seq.device)
-    return qc_stats_torch(*args)
+    base = (None if out is None else
+            _total_buffer(out, seq.shape[1], bool(qual_hist_2d), seq.device))
+    plain = qc_stats_torch(*args)
+    flat = torch.cat([a.reshape(-1) for a in plain if a is not None])
+    if base is None:
+        return _views(flat, _layout(seq.shape[1], bool(qual_hist_2d)))
+    base += flat
+    return out
 
 
 qc_stats.launches = 0

@@ -53,13 +53,13 @@ def _scores(seq, lengths, ref, with_alignment):
 
 def _local_step(seq, qual, lengths, n_records, schema, ref=None, *,
                 check_ascii: bool, check_quality: bool, with_alignment: bool,
-                qual_hist_2d: bool):
+                qual_hist_2d: bool, out=None):
     codes, phred = validate_ops.validate_decode(
         seq, qual, lengths, schema, check_ascii=check_ascii,
         check_quality=check_quality)
     st = stats_ops.qc_stats(seq, qual, lengths, int(schema.OFFSET),
                             n_records=n_records, error_codes=codes,
-                            qual_hist_2d=qual_hist_2d)
+                            qual_hist_2d=qual_hist_2d, out=out)
     return QCAlignResult(st, codes, phred,
                          _scores(seq, lengths, ref, with_alignment))
 
@@ -173,6 +173,9 @@ def build_qc_align_step(mesh=None, *, check_ascii: bool = True,
     whose LOWER / UPPER / OFFSET bound and decode the quality bytes, and
     `ref` (u8[Lr] on the batch's device) is the reference the rows are
     aligned to when `with_alignment`; without it the scores are zeros.
+    Without a mesh fn also takes `out=`, a running total of earlier
+    batches' stats (see ops/stats.qc_stats): the batch's stats are added
+    into it and `stats` is `out`.
 
     With a mesh every rank calls fn on its block (`shard_batch`: rows over
     `axis_name`, and on a mesh with an 'sp' axis of more than one rank the

@@ -9,7 +9,9 @@ chunk of the ragged corpus below; the alignment variant kernel in each of
 its five modes at the example's and the QC batch's shapes and on edge
 batches, with two score sets; the padded-batch panel kernels qc_stats,
 adapter_content and read_hashes at run_file's 4,096 x 256 batch, qc_stats
-also at 32,768 x 1,024 with the quartile leaf, and on edge batches), then
+also at 32,768 x 1,024 with the quartile leaf, and on edge batches, with
+qc_stats' and the multi-adapter scan's running totals and FastQC's six
+adapters in one launch), then
 drives the port's paths, each with the launch counts set to 0 just before
 it and read just after, and with no plain torch version of a host-route
 kernel (ops/nw.py's wavefronts, qc_stats_torch, adapter_content_torch,
@@ -1022,6 +1024,13 @@ PANEL_WIDE = (32768, 1024)
 PANEL_EDGE_WIDTHS = (1, 7, 16, 33, 256, 1024)
 # a batch tall enough that qc_stats' blocks take their most rows (512)
 PANEL_TALL = (300_000, 16)
+# FastQC's adapter list, and the adapter sets of the multi-adapter kernel:
+# none, one, the six, and the six with one longer than most rows and one in
+# lower case
+FASTQC_ADAPTERS = (b"AGATCGGAAGAG", b"TGGAATTCTCGG", b"GATCGTCGGACT",
+                   b"CTGTCTCTTATA", b"AAAAAAAAAAAA", b"GGGGGGGGGGGG")
+ADAPTER_SETS = ((), (ADAPTER,), FASTQC_ADAPTERS,
+                FASTQC_ADAPTERS + (b"ACGT" * 70, b"tggaattctcgg"))
 # (count_scalars, row_stats, qual_hist_2d)
 QC_STATS_OPTIONS = ((True, True, False), (False, True, False),
                     (True, False, False), (True, True, True))
@@ -1059,24 +1068,49 @@ def qc_stats_bound(lengths, L, n_valid, qual_hist_2d, col_offset=0):
                  QC_STATS_OPS_PER_POSITION * inlen)
 
 
-def adapter_bound(seq, lengths, n_valid, adapter):
-    """bound() of one adapter_content call on this data: each record read
-    up to the end of its first hit (to its length without one), one
-    compare per start column up to the first hit, lengths and the panel."""
+def adapter_bound(seq, lengths, n_valid, adapters):
+    """bound() of one call that scans this data for `adapters`: each record
+    read up to the end of the last adapter's first hit (to its length when
+    one has none), one compare per start column and adapter up to its
+    first hit, lengths and the panels."""
     import torch
 
     from blazeseq_tpu_torch.ops.adapter import _adapter_matches
 
     n, L = seq.shape
-    la = len(adapter)
-    hit = _adapter_matches(seq[:n_valid], lengths[:n_valid], adapter)
-    any_hit = hit.any(1)
-    first = hit.to(torch.int32).argmax(1)
-    fit = lengths[:n_valid].clamp(0, L).to(first.dtype)
-    starts = torch.where(any_hit, first + 1, (fit - la + 1).clamp(min=0))
-    read = torch.where(any_hit, first + la, fit)
-    return bound(int(read.sum()) + 4 * n_valid + 4 * (L + 2),
-                 int(starts.sum()))
+    fit = lengths[:n_valid].clamp(0, L).to(torch.int64)
+    read = torch.zeros_like(fit)
+    starts = 0
+    for adapter in adapters:
+        la = len(adapter)
+        hit = _adapter_matches(seq[:n_valid], lengths[:n_valid], adapter)
+        any_hit = hit.any(1)
+        first = hit.to(torch.int32).argmax(1).to(torch.int64)
+        starts += int(torch.where(any_hit, first + 1,
+                                  (fit - la + 1).clamp(min=0)).sum())
+        read = torch.maximum(read, torch.where(any_hit, first + la, fit))
+    return bound(int(read.sum()) + 4 * n_valid + 4 * len(adapters) * (L + 2),
+                 starts)
+
+
+def launch_floor_ms():
+    """Device ms of an empty launch (torch.cuda._sleep(0)), queued behind a
+    sleeping kernel so that the host's launch cost is hidden: the least a
+    kernel launch takes on this card."""
+    import torch
+
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        a.record()
+        for _ in range(50):
+            torch.cuda._sleep(0)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / 50)
+    return float(np.median(times))
 
 
 def hash_bound(lengths, L, n, n_valid):
@@ -1098,15 +1132,21 @@ def _card_rows(a, off):
 
 def phase_padded_panels(seed):
     """The padded-batch panel kernels against their plain versions on the
-    card, bit for bit: qc_stats (csrc/qc_stats.cu), adapter_content
-    (csrc/adapter.cu) and read_hashes (csrc/dedup.cu). At PANEL_SHAPE with
-    every option set of qc_stats and at PANEL_WIDE with the quartile leaf;
-    then edge batches of 300 rows at PANEL_EDGE_WIDTHS, rows aligned and one
-    byte off, offsets 33 and 64, n_records n, in between and 0 (col_offset 5
-    and no codes in between), every option set, adapters of 0, 1 and 12
-    bytes, and PANEL_TALL. Returns one JSON record per kernel, timed at PANEL_SHAPE with
-    n_records = n (qc_stats with the default options; with the quartile
-    leaf and at PANEL_WIDE under `variants`)."""
+    card, bit for bit: qc_stats (csrc/qc_stats.cu), adapter_content and the
+    multi-adapter scan _adapter_contents (csrc/adapter.cu) and read_hashes
+    (csrc/dedup.cu). At PANEL_SHAPE with every option set of qc_stats and at
+    PANEL_WIDE with the quartile leaf; then edge batches of 300 rows at
+    PANEL_EDGE_WIDTHS, rows aligned and one byte off, offsets 33 and 64,
+    n_records n, in between and 0 (col_offset 5 and no codes in between),
+    every option set, adapters of 0, 1 and 12 bytes, the adapter sets of
+    ADAPTER_SETS in one launch each, and PANEL_TALL; and the running totals:
+    three batches added into one qc_stats out= (every option set) and one
+    _adapter_contents out= (every adapter set) against the sums of the plain
+    versions. Returns one JSON record per kernel, timed at PANEL_SHAPE with
+    n_records = n (qc_stats with the default options; with the quartile leaf,
+    at PANEL_WIDE and into a running total under `variants`; the adapter
+    kernel with ADAPTER, and with FASTQC_ADAPTERS in one launch under
+    `variants`), each with the launch floor beside it."""
     import torch
 
     from blazeseq_tpu_torch.ops import adapter as ad
@@ -1121,6 +1161,13 @@ def phase_padded_panels(seed):
         torch.cuda.synchronize()
         max_abs_diff(got, want, label)
         n_cases += 1
+
+    def contents(dseq, dlen, nr, adapters, out=None):
+        got = ad._adapter_contents(dseq, dlen, nr, adapters, out=out)
+        if len(got) != len(adapters):
+            raise AssertionError("_adapter_contents: %d panels for %d "
+                                 "adapters" % (len(got), len(adapters)))
+        return got
 
     def compare_all(dseq, dqual, dlen, dcodes, offset, label):
         n = dseq.shape[0]
@@ -1138,23 +1185,66 @@ def phase_padded_panels(seed):
                                               adapter_host=adapter),
                      "adapter_content %s %r n_records %d"
                      % (label, adapter, nr))
+            for adapters in ADAPTER_SETS:
+                got = contents(dseq, dlen, nr, adapters)
+                for a, g in zip(adapters, got):
+                    same(g, ad.adapter_content_torch(dseq, dlen, nr,
+                                                     adapter_host=a),
+                         "_adapter_contents %s %d adapters, %r n_records %d"
+                         % (label, len(adapters), a, nr))
             same((dedup.read_hashes(dseq, dlen, nr),),
                  (dedup.read_hashes_torch(dseq, dlen, nr),),
                  "read_hashes %s n_records %d" % (label, nr))
 
+    def compare_totals(batches, label):
+        """Three batches added into one out against the plain sums."""
+        for cs, rs, q2 in QC_STATS_OPTIONS:
+            total = want = None
+            for (dseq, dqual, dlen, dcodes, offset), nr in zip(
+                    batches, (None, 7, 0)):
+                kw = dict(n_records=nr, error_codes=dcodes, count_scalars=cs,
+                          row_stats=rs, qual_hist_2d=q2)
+                total = stats.qc_stats(dseq, dqual, dlen, offset, out=total,
+                                       **kw)
+                part = stats.qc_stats_torch(dseq, dqual, dlen, offset, **kw)
+                want = part if want is None else want.merge(part)
+            same(total, want, "qc_stats(out=) %s, 3 batches, options %r"
+                 % (label, (cs, rs, q2)))
+        for adapters in ADAPTER_SETS:
+            total, want = None, [None] * len(adapters)
+            for (dseq, _, dlen, _, _), nr in zip(batches, (None, 7, 0)):
+                total = contents(dseq, dlen, nr, adapters, out=total)
+                want = [ad.adapter_content_torch(dseq, dlen, nr,
+                                                 adapter_host=a)
+                        if w is None else w.merge(ad.adapter_content_torch(
+                            dseq, dlen, nr, adapter_host=a))
+                        for w, a in zip(want, adapters)]
+            for a, g, w in zip(adapters, total, want):
+                same(g, w, "_adapter_contents(out=) %s, 3 batches, %r"
+                     % (label, a))
+
+    floor = launch_floor_ms()
+    log("launch floor: an empty launch takes %.5f ms on the card alone "
+        "(launch_floor_ms)" % floor)
     variants = {}
+    ad_variants = {}
     recs = {}
     for (n, L), offsets in ((PANEL_SHAPE, (33, 64)), (PANEL_WIDE, (33,))):
+        batches = []
         for offset in offsets:
             seq, qual, lengths, codes = panel_inputs(rng, n, L, offset)
             d = [torch.from_numpy(a).cuda()
                  for a in (seq, qual, lengths, codes)]
             compare_all(*d, offset, "[%d, %d] offset %d" % (n, L, offset))
+            batches.append((*d, offset))
+        if (n, L) == PANEL_SHAPE:
+            compare_totals(batches + batches[:1], "[%d, %d]" % (n, L))
         tag = "%dx%d" % (n, L)
         for q2 in ((False, True) if (n, L) == PANEL_SHAPE else (True,)):
-            def kern():
+            def kern(out=None):
                 return stats.qc_stats(d[0], d[1], d[2], 33, n_records=n,
-                                      error_codes=d[3], qual_hist_2d=q2)
+                                      error_codes=d[3], qual_hist_2d=q2,
+                                      out=out)
 
             def plain():
                 return stats.qc_stats_torch(d[0], d[1], d[2], 33,
@@ -1163,9 +1253,13 @@ def phase_padded_panels(seed):
 
             rec = dict(shape=[n, L], ms=cuda_ms(kern),
                        plain_ms=cuda_ms(plain, inner=2),
+                       launch_floor_ms=floor,
                        **qc_stats_bound(lengths, L, n, q2))
             if (n, L) == PANEL_SHAPE and not q2:
                 recs["qc_stats"] = rec
+                total = kern()
+                variants[tag + "_out"] = dict(
+                    rec, ms=cuda_ms(lambda: kern(total)))
             else:
                 variants[tag + ("_qual_hist_2d" if q2 else "")] = rec
         if (n, L) == PANEL_SHAPE:
@@ -1175,37 +1269,53 @@ def phase_padded_panels(seed):
                     d[0], d[2], n, adapter_host=ADAPTER)),
                 plain_ms=cuda_ms(lambda: ad.adapter_content_torch(
                     d[0], d[2], n, adapter_host=ADAPTER), inner=2),
-                **adapter_bound(d[0], d[2], n, ADAPTER))
+                launch_floor_ms=floor,
+                **adapter_bound(d[0], d[2], n, (ADAPTER,)))
+            ad_variants["adapters_6"] = dict(
+                shape=[n, L], adapters=len(FASTQC_ADAPTERS),
+                ms=cuda_ms(lambda: ad._adapter_contents(
+                    d[0], d[2], n, FASTQC_ADAPTERS)),
+                plain_ms=cuda_ms(lambda: [ad.adapter_content_torch(
+                    d[0], d[2], n, adapter_host=a)
+                    for a in FASTQC_ADAPTERS], inner=1),
+                launch_floor_ms=floor,
+                **adapter_bound(d[0], d[2], n, FASTQC_ADAPTERS))
             recs["read_hashes"] = dict(
                 shape=[n, L], ms=cuda_ms(lambda: dedup.read_hashes(
                     d[0], d[2], n)),
                 plain_ms=cuda_ms(lambda: dedup.read_hashes_torch(
                     d[0], d[2], n), inner=2),
+                launch_floor_ms=floor,
                 **hash_bound(lengths, L, n, n))
-        del d
+        del d, batches
     for L in PANEL_EDGE_WIDTHS:
+        batches = []
         for offset in (33, 64):
             seq, qual, lengths, codes = panel_inputs(rng, 300, L, offset)
             lengths[:4] = (0, L, L + 1, 2 * L + 1)
             dlen, dcodes = (torch.from_numpy(a).cuda()
                             for a in (lengths, codes))
             for off in (0, 1):
-                compare_all(_card_rows(seq, off), _card_rows(qual, off),
-                            dlen, dcodes, offset,
-                            "L=%d offset %d off %d" % (L, offset, off))
+                b = (_card_rows(seq, off), _card_rows(qual, off), dlen,
+                     dcodes, offset)
+                compare_all(*b, "L=%d offset %d off %d" % (L, offset, off))
+                batches.append(b)
+        compare_totals(batches[1:], "L=%d" % L)
     n, L = PANEL_TALL
     d = [torch.from_numpy(a).cuda() for a in panel_inputs(rng, n, L)]
     compare_all(*d, 33, "[%d, %d]" % (n, L))
     del d
     recs["qc_stats"]["variants"] = variants
+    recs["adapter_content"]["variants"] = ad_variants
     for name, rec in recs.items():
         rec["max_abs_err"] = 0
         log("%s %s: kernel %.4f ms, plain %.4f ms, bound %.5f ms (%s)"
             % (name, rec["shape"], rec["ms"], rec["plain_ms"],
                rec["bound_ms"], rec["bound_by"]))
-    for tag, rec in variants.items():
-        log("qc_stats %s: kernel %.4f ms, plain %.4f ms, bound %.5f ms (%s)"
-            % (tag, rec["ms"], rec["plain_ms"], rec["bound_ms"],
+    for tag, rec in list(variants.items()) + list(ad_variants.items()):
+        log("%s %s: kernel %.4f ms, plain %.4f ms, bound %.5f ms (%s)"
+            % ("adapter_content" if tag.startswith("adapters") else
+               "qc_stats", tag, rec["ms"], rec["plain_ms"], rec["bound_ms"],
                rec["bound_by"]))
     log("padded-batch panel kernels == plain on %d cases" % n_cases)
     return recs

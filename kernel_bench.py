@@ -34,13 +34,19 @@ compare two commits on one card). Shapes:
   (chip_smoke.PANEL_SHAPE, inputs from chip_smoke.panel_inputs):
   `qc_stats` with the default options and with the quartile leaf (and at
   32,768 x 1,024 with it), `adapter_content` with chip_smoke's adapter,
-  `read_hashes`, and the whole padded step (`build_qc_align_step` with
-  alignment and quartiles, then the adapter and the hashes); in a tree
-  without the panel kernels these are its torch ops;
+  FastQC's six adapters (`adapters_6`: one `_adapter_contents` launch
+  where the tree has it, else six calls), `read_hashes`, and the whole
+  padded step as `run_file` drives it (`build_qc_align_step` with
+  alignment and quartiles, then the adapters and the hashes, adding into
+  running totals where the tree keeps them, else merging), with the
+  chip_smoke adapter and with the six; the device time of an empty launch
+  (`launch_floor_ms`); in a tree without the panel kernels these are its
+  torch ops;
 * the CUDA kernel launches of one `run_file(align_to, adapters,
   duplicates, quartiles)` batch, from torch.profiler: the launches of
   runs over 1 and over 3 padded batches of chip_smoke's planted corpus,
-  their difference over 2, and the kernels by name.
+  their difference over 2, and the kernels by name; again with FastQC's
+  six adapters (`run_file_batch_launches_6_adapters`).
 
 Each tree with `parallel/mesh.py` also compares a
 1-rank NCCL mesh in its process with no mesh, each result equal to its
@@ -50,6 +56,11 @@ chip_smoke.py's run_file(align_to) options on its 1M x 150 bp corpus
 (walls of single, mesh, mesh, single, and a trace of the 20,000-read
 prefix). The traces' tables, sorted by self CPU time, go to
 build/traces/mesh_{step,run_file}_{mesh,single}_<tree>.txt.
+
+With --sweep, each tree whose `qc_stats` kernel takes a grid also times it
+over rows a block (16-255, and its own choice) x cluster size (1-8) at
+4,096 x 256 (default options and the quartile leaf) and 32,768 x 1,024
+with the quartile leaf (`qc_stats_grid_sweep`).
 
 With --ragged-path, each tree also drives `run_file_device` three times
 over chip_smoke.py's 1 GiB ragged corpus (written anew in each tree's
@@ -125,7 +136,7 @@ def _same(got, want, label):
         raise AssertionError("%s: kernel differs from plain" % label)
 
 
-def _one_tree(tree, seed, ragged_path=False):
+def _one_tree(tree, seed, ragged_path=False, sweep=False):
     # this script's chip_smoke (inputs and bounds; it imports the package
     # only inside its functions), then the tree's package
     sys.path.insert(0, HERE)
@@ -210,7 +221,11 @@ def _one_tree(tree, seed, ragged_path=False):
                                             3 * c.numel() // 4)["bound_ms"])
         del c, got
     out.update(_panels(cs, seed))
+    if sweep:
+        out["qc_stats_grid_sweep"] = _qc_stats_sweep(cs, seed)
     out["run_file_batch_launches"] = _batch_launches(cs, seed)
+    out["run_file_batch_launches_6_adapters"] = _batch_launches(
+        cs, seed, cs.FASTQC_ADAPTERS)
     if importlib.util.find_spec("blazeseq_tpu_torch.ops.ragged_qc"):
         out["ragged_qc"] = _ragged(cs, seed)
         if ragged_path:
@@ -263,7 +278,24 @@ def _panels(cs, seed):
         if hasattr(ad, "adapter_content_torch"):
             _same(adapter(), adapter(ad.adapter_content_torch), label)
         out[label] = dict(_times(adapter), bound_ms=cs.adapter_bound(
-            d[0], d[2], n, cs.ADAPTER)["bound_ms"])
+            d[0], d[2], n, (cs.ADAPTER,))["bound_ms"])
+        # FastQC's six adapters: one launch where the tree scans them
+        # together, else one call an adapter
+        six = cs.FASTQC_ADAPTERS
+        if hasattr(ad, "_adapter_contents"):
+            def adapters6():
+                return ad._adapter_contents(d[0], d[2], n, six)
+        else:
+            def adapters6():
+                return [ad.adapter_content(d[0], d[2], n, adapter_host=a)
+                        for a in six]
+        for a, g in zip(six, adapters6()):
+            _same(g, ad.adapter_content_torch(d[0], d[2], n, adapter_host=a)
+                  if hasattr(ad, "adapter_content_torch") else g,
+                  label + " " + a.decode())
+        out["adapters_6_%dx%d" % (n, L)] = dict(
+            _times(adapters6),
+            bound_ms=cs.adapter_bound(d[0], d[2], n, six)["bound_ms"])
         label = "read_hashes_%dx%d" % (n, L)
         if hasattr(dedup, "read_hashes_torch"):
             _same((dedup.read_hashes(d[0], d[2], n),),
@@ -275,22 +307,80 @@ def _panels(cs, seed):
                                .copy()).cuda()
         step = build_qc_align_step(with_alignment=True, qual_hist_2d=True)
         sanger = parse_schema("sanger")
+        # the step as run_file drives it: into running totals where the
+        # tree keeps them (one launch for the adapters), else a merge
+        totals = {}
 
-        def padded_step():
-            step(d[0], d[1], d[2], n, sanger, ref)
-            ad.adapter_content(d[0], d[2], n, adapter_host=cs.ADAPTER)
+        def padded_step(adapters=(cs.ADAPTER,)):
+            if hasattr(ad, "_adapter_contents"):
+                st = totals.get("stats")
+                totals["stats"] = step(d[0], d[1], d[2], n, sanger, ref,
+                                       out=st).stats
+                totals[adapters] = ad._adapter_contents(
+                    d[0], d[2], n, adapters, out=totals.get(adapters))
+            else:
+                st = step(d[0], d[1], d[2], n, sanger, ref).stats
+                totals["stats"] = (st if "stats" not in totals
+                                   else totals["stats"].merge(st))
+                for a in adapters:
+                    ast = ad.adapter_content(d[0], d[2], n, adapter_host=a)
+                    totals[a] = (ast if a not in totals
+                                 else totals[a].merge(ast))
             dedup.read_hashes(d[0], d[2], n)
 
         out["padded_step_%dx%d" % (n, L)] = _times(padded_step, inner=5)
+        out["padded_step_6_adapters_%dx%d" % (n, L)] = _times(
+            lambda: padded_step(six), inner=5)
+    out["launch_floor_ms"] = cs.launch_floor_ms()
     return out
 
 
-def _batch_launches(cs, seed):
+def _qc_stats_sweep(cs, seed):
+    """qc_stats' device ms by (rows a block, cluster size) at cs.PANEL_SHAPE
+    (default options, and the quartile leaf) and at cs.PANEL_WIDE with the
+    quartile leaf, into a running total; "0x0" is the kernel's own choice,
+    timed first and again last ("0x0_again"). Empty where the tree's
+    kernel takes no grid."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from blazeseq_tpu_torch.ops import stats
+
+    if "rows_per_block" not in inspect.signature(
+            stats._qc_stats_cuda).parameters:
+        return {}
+    out = {}
+    rng = np.random.default_rng([seed, 7])
+    for (n, L), q2s in ((cs.PANEL_SHAPE, (False, True)),
+                        (cs.PANEL_WIDE, (True,))):
+        d = [torch.from_numpy(a).cuda() for a in cs.panel_inputs(rng, n, L)]
+        for q2 in q2s:
+            total = stats.qc_stats(d[0], d[1], d[2], 33, qual_hist_2d=q2)
+            row = {}
+            # the kernel's own choice first and again last: a card that
+            # slowed down during the sweep shows as a difference
+            for rows, cluster in ((0, 0), *((r, c) for r in (16, 32, 64, 128,
+                                                              255)
+                                            for c in (1, 2, 4, 8)), (0, 0)):
+                key = "%dx%d" % (rows, cluster)
+                row[key + "_again" if key in row else key] = device_ms(
+                    lambda: stats._qc_stats_cuda(
+                        d[0], d[1], d[2], 33, n, d[3], 0, True, True, q2,
+                        total, rows, cluster))
+            out["qc_stats_%dx%d%s" % (n, L, "_2d" if q2 else "")] = row
+        del d
+    return out
+
+
+def _batch_launches(cs, seed, adapters=None):
     """CUDA kernel launches of run_file(align_to, adapters, duplicates,
     quartiles) on 1 and on 3 padded batches of chip_smoke's planted corpus,
     from torch.profiler (each run after a warm-up run of the same model);
     per batch, their difference over 2, with the kernels by name. Copies
-    (Memcpy / Memset) are counted apart."""
+    (Memcpy / Memset) are counted apart. `adapters` replaces chip_smoke's
+    one adapter."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -304,7 +394,10 @@ def _batch_launches(cs, seed):
             path = os.path.join(tmp, "batches%d.fastq" % k)
             cs.write_corpus(path, DEFAULT_BATCH_SIZE * k, seed + 17,
                             planted=True)
-            model = QCModel(device="cuda", **cs._align_kw(seed))
+            kw = cs._align_kw(seed)
+            if adapters is not None:
+                kw["adapters"] = list(adapters)
+            model = QCModel(device="cuda", **kw)
             model.run_file(path)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
@@ -485,11 +578,14 @@ def main(argv=None):
     ap.add_argument("--ragged-path", action="store_true",
                     help="also time run_file_device on the 1 GiB ragged "
                     "corpus")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time qc_stats over rows a block x cluster "
+                    "size")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.one:
         print(json.dumps(_one_tree(os.path.abspath(args.one), args.seed,
-                                   args.ragged_path)))
+                                   args.ragged_path, args.sweep)))
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -497,7 +593,8 @@ def main(argv=None):
     for tree in args.tree or [HERE]:
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--one", tree, "--seed", str(args.seed)]
-                             + ["--ragged-path"] * args.ragged_path,
+                             + ["--ragged-path"] * args.ragged_path
+                             + ["--sweep"] * args.sweep,
                              capture_output=True, text=True)
         if res.returncode != 0:
             sys.stderr.write(res.stderr)

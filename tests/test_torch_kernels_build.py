@@ -89,7 +89,7 @@ def test_every_kernel_source_is_built_and_bound():
                "scan.cu": ("bs_structural_bitmaps",),
                "ragged_qc.cu": ("bs_ragged_qc", "bs_ragged_qc_blocks_per_sm"),
                "qc_stats.cu": ("bs_qc_stats",),
-               "adapter.cu": ("bs_adapter_content",),
+               "adapter.cu": ("bs_adapter_contents",),
                "dedup.cu": ("bs_read_hashes",)}
     for source, names in entries.items():
         with open(os.path.join(_kernels.CSRC, source)) as f:

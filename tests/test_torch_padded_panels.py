@@ -1,6 +1,7 @@
 """Parity: the PyTorch port's padded-batch panels (ops/stats.py::qc_stats,
-ops/adapter.py::adapter_content, ops/dedup.py::read_hashes) against the
-reference's jitted functions in blazeseq_tpu/ops/{stats,adapter,dedup}.py.
+ops/adapter.py::adapter_content and _adapter_contents,
+ops/dedup.py::read_hashes) against the reference's jitted functions in
+blazeseq_tpu/ops/{stats,adapter,dedup}.py.
 
 The edge set: widths 1, 7, 16, 33 and 256; lengths 0, up to L and past it
 up to 2L + 1; n_records 0, n and in between; Phred offsets 33 and 64 with
@@ -8,6 +9,13 @@ quality bytes below the offset and above offset + 63; col_offset 5 and
 error_codes None; lowercase bases, 0x00, space and high-bit bytes; an
 adapter of one byte, one planted so that it fits only at the last column,
 and a 12-mer. Every leaf is an integer: np.array_equal, no tolerance.
+
+The running totals: qc_stats(out=) over 1, 2 and 5 batches equals the sum
+of the reference's per batch, and _adapter_contents (every adapter of a
+list at once: none, one, FastQC's six, one longer than the row, one in
+lower case) equals the reference per adapter, with and without out=; an
+out of another shape, or of loose leaves, raises; QCModel's device totals
+give the same report whatever their flush period.
 
 On the CPU the dispatchers run their plain torch versions and count no
 launch. The card cases hold each CUDA kernel (csrc/qc_stats.cu,
@@ -33,6 +41,13 @@ RECORDS = [("all", None, True, 0), ("some", "mid", False, 5),
 OPTIONS = [(True, True, False), (False, True, False), (True, False, False),
            (True, True, True)]
 ADAPTER = b"AGATCGGAAGAG"
+# FastQC's adapter list
+FASTQC_ADAPTERS = (b"AGATCGGAAGAG", b"TGGAATTCTCGG", b"GATCGTCGGACT",
+                   b"CTGTCTCTTATA", b"AAAAAAAAAAAA", b"GGGGGGGGGGGG")
+# (label, adapters): none, one, FastQC's six, and the six with one longer
+# than the widest row below and one in lower case
+ADAPTER_SETS = [("none", ()), ("one", (ADAPTER,)), ("fastqc", FASTQC_ADAPTERS),
+                ("mixed", FASTQC_ADAPTERS + (b"ACGT" * 70, b"tggaattctcgg"))]
 N_ROWS = 37
 
 
@@ -188,6 +203,189 @@ def test_read_hashes_equal_reference(L, records):
         assert ((got >= 0) & (got <= 0xFFFFFFFF)).all()
         np.testing.assert_array_equal(want, got.astype(np.uint32))
     assert dedup.read_hashes.launches == before
+
+
+def _ref_qc_stats(ref_stats, jnp, seq, qual, lengths, codes, offset, nr,
+                  **kw):
+    return ref_stats.qc_stats(
+        jnp.asarray(seq), jnp.asarray(qual), jnp.asarray(lengths), offset,
+        n_records=None if nr is None else jnp.int32(nr),
+        error_codes=None if codes is None else jnp.asarray(codes), **kw)
+
+
+@pytest.mark.parametrize("with_codes", [True, False],
+                         ids=["codes", "no_codes"])
+@pytest.mark.parametrize("options", OPTIONS,
+                         ids=["default", "no_scalars", "no_rows", "2d"])
+@pytest.mark.parametrize("n_batches", [1, 2, 5])
+def test_qc_stats_out_adds_batches(n_batches, options, with_codes):
+    """qc_stats(out=) over batches of different n_records (one width)
+    equals, leaf for leaf, the sum of the reference's qc_stats per batch;
+    the leaves are views of one buffer, and to_numpy copies it whole."""
+    jnp, ref_stats, _, _ = _ref()
+    count_scalars, row_stats, qh2d = options
+    kw = dict(count_scalars=count_scalars, row_stats=row_stats,
+              qual_hist_2d=qh2d)
+    L = 33
+    want = total = None
+    for b in range(n_batches):
+        seq, qual, lengths, codes = _batch(N_ROWS, L, seed=100 + b)
+        codes = codes if with_codes else None
+        nr = (None, N_ROWS // 2 + 1, 0, N_ROWS - 3, 5)[b]
+        part = _ref_qc_stats(ref_stats, jnp, seq, qual, lengths, codes, 33,
+                             nr, **kw)
+        part = [None if x is None else np.asarray(x, np.int64) for x in part]
+        want = part if want is None else [
+            None if w is None else w + x for w, x in zip(want, part)]
+        t = [None if a is None else torch.from_numpy(a)
+             for a in (seq, qual, lengths, codes)]
+        got = stats.qc_stats(t[0], t[1], t[2], 33, n_records=nr,
+                             error_codes=t[3], out=total, **kw)
+        assert total is None or got is total  # added in place
+        total = got
+    assert stats._flat_buffer(total) is not None
+    _same_leaves(stats.QCStats(*want), total, "%d batches" % n_batches)
+    for w, h in zip(want, total.to_numpy()):
+        assert (w is None) == (h is None)
+        if w is not None:
+            assert h.dtype == np.int64
+            np.testing.assert_array_equal(w, h)
+
+
+def test_qc_stats_out_refuses_other_layouts():
+    seq, qual, lengths, _ = _batch(N_ROWS, 16, seed=1)
+    t = [torch.from_numpy(a) for a in (seq, qual, lengths)]
+    total = stats.qc_stats(*t, 33)
+    wide = stats.qc_stats(*(torch.from_numpy(a) for a in _batch(
+        N_ROWS, 17, seed=1)[:3]), 33)
+    with pytest.raises(ValueError, match="columns wide"):
+        stats.qc_stats(*t, 33, out=wide)
+    with pytest.raises(ValueError, match=r"lacks the \[64, L\] leaf"):
+        stats.qc_stats(*t, 33, qual_hist_2d=True, out=total)
+    with pytest.raises(ValueError, match=r"has the \[64, L\] leaf"):
+        stats.qc_stats(*t, 33, out=stats.qc_stats(*t, 33, qual_hist_2d=True))
+    loose = [stats.qc_stats_torch(*t, 33), total.merge(total),
+             stats.QCStats(*(None if a is None else a.clone()
+                             for a in total))]
+    for out in loose:
+        with pytest.raises(ValueError, match="views of one int32 buffer"):
+            stats.qc_stats(*t, 33, out=out)
+    with pytest.raises(ValueError, match="must be a QCStats"):
+        stats.qc_stats(*t, 33, out=tuple(total))
+    before = [a.clone() for a in total if a is not None]
+    assert stats.qc_stats(*t, 33, out=total) is total
+    for a, b in zip(before, (x for x in total if x is not None)):
+        assert torch.equal(2 * a, b)
+
+
+def _multi_adapter_batch(n, L, adapters, seed):
+    """seq and lengths from _batch with each adapter planted in rows of
+    its own (every other copy in lower case) where it fits, the first of
+    them as long as the row."""
+    seq, _, lengths, _ = _batch(n, L, seed)
+    rng = np.random.default_rng(seed + 1)
+    for k, adapter in enumerate(adapters):
+        a = np.frombuffer(adapter, np.uint8)
+        if not 0 < len(a) <= L:
+            continue
+        rows = range(4 + k, n, len(adapters))
+        lengths[rows[0]] = L
+        for r in rows:
+            j = int(rng.integers(0, L - len(a) + 1))
+            seq[r, j:j + len(a)] = a | (0x20 if r % 2 else 0)
+    return seq, lengths
+
+
+def _ref_adapter(ref_ad, jnp, seq, lengths, nr, adapter):
+    """The reference's AdapterStats as int64 arrays; an adapter longer than
+    the row (which the reference refuses) finds nothing, as in the port."""
+    n, L = seq.shape
+    if len(adapter) > L:
+        return [np.zeros(L, np.int64), np.int64(0),
+                np.int64(n if nr is None else nr)]
+    st = ref_ad.adapter_content(jnp.asarray(seq), jnp.asarray(lengths),
+                                None if nr is None else jnp.int32(nr),
+                                adapter_host=adapter)
+    return [np.asarray(x, np.int64) for x in st]
+
+
+@pytest.mark.parametrize("with_out", [False, True], ids=["new", "out"])
+@pytest.mark.parametrize("adapters", ADAPTER_SETS,
+                         ids=[a[0] for a in ADAPTER_SETS])
+@pytest.mark.parametrize("L", [33, 256])
+def test_adapter_contents_equal_reference(L, adapters, with_out):
+    """Every adapter of a list in one call equals the reference per
+    adapter; with out=, two batches add into one buffer."""
+    jnp, _, ref_ad, _ = _ref()
+    _, adapters = adapters
+    batches = [(None, 11), (N_ROWS // 2, 12)] if with_out else [(None, 11)]
+    want = [None] * len(adapters)
+    total = None
+    for nr, seed in batches:
+        seq, lengths = _multi_adapter_batch(N_ROWS, L, adapters, seed)
+        for k, a in enumerate(adapters):
+            part = _ref_adapter(ref_ad, jnp, seq, lengths, nr, a)
+            want[k] = part if want[k] is None else [
+                w + x for w, x in zip(want[k], part)]
+        t = (torch.from_numpy(seq), torch.from_numpy(lengths))
+        before = ad.adapter_content.launches
+        got = ad._adapter_contents(*t, nr, adapters, out=total)
+        assert ad.adapter_content.launches == before
+        assert total is None or got is total
+        total = got
+    assert len(total) == len(adapters)
+    for k, (w, g) in enumerate(zip(want, total)):
+        for name, x, y in zip(ad.AdapterStats._fields, w, g):
+            assert y.dtype == torch.int32
+            np.testing.assert_array_equal(x, y.numpy(), err_msg="%d %s"
+                                          % (k, name))
+    if len(adapters) >= 6:
+        assert all(int(g.reads_with_adapter) > 0 for g in total[:6])
+
+
+def test_adapter_contents_out_refuses_other_shapes():
+    seq, lengths = _multi_adapter_batch(N_ROWS, 33, FASTQC_ADAPTERS, 3)
+    t = (torch.from_numpy(seq), torch.from_numpy(lengths))
+    total = ad._adapter_contents(*t, None, FASTQC_ADAPTERS)
+    with pytest.raises(ValueError, match="must hold 5 AdapterStats"):
+        ad._adapter_contents(*t, None, FASTQC_ADAPTERS[:5], out=total)
+    narrow = ad._adapter_contents(t[0][:, :32].contiguous(), t[1], None,
+                                  FASTQC_ADAPTERS)
+    with pytest.raises(ValueError, match=r"views of one int32 \[6, 35\]"):
+        ad._adapter_contents(*t, None, FASTQC_ADAPTERS, out=narrow)
+    loose = tuple(ad.adapter_content(*t, adapter_host=a)
+                  for a in FASTQC_ADAPTERS)
+    with pytest.raises(ValueError, match="views of one int32"):
+        ad._adapter_contents(*t, None, FASTQC_ADAPTERS, out=loose)
+    assert ad._adapter_contents(*t, None, (), out=()) == ()
+
+
+def test_device_totals_flush_period_keeps_reports(monkeypatch):
+    """run_file and the host route (_host_consume) add every batch into a
+    device total that goes to the host every _FLUSH_EVERY batches: the
+    report is the same whatever the period."""
+    import blazeseq_tpu_torch as bt
+    from blazeseq_tpu_torch.models import qc as qc_mod
+
+    raw = bytes(bt.generate_synthetic_fastq_buffer(300, 20, 90, 2, 40,
+                                                   "sanger"))
+    kw = dict(quality_schema="sanger", batch_size=16, max_read_len=128,
+              adapters=list(FASTQC_ADAPTERS[:2]), track_quartiles=True,
+              device="cpu")
+    reports = []
+    for every in (64, 3, 1):
+        monkeypatch.setattr(qc_mod, "_FLUSH_EVERY", every)
+        model = qc_mod.QCModel(**kw)
+        rep = model.run_reader(bt.MemoryReader(raw))
+        host = qc_mod.QCModel(quality_schema="sanger", batch_size=16,
+                              max_read_len=128, device="cpu")
+        acc = stats.QCAccumulator()
+        host._host_consume(host._parser(bt.MemoryReader(raw)), acc)
+        assert host.tier_chunks["host"] == 19
+        reports.append((rep.to_dict(), host._report_from_acc(acc).to_dict()))
+    assert reports[0][0]["reads"] == 300
+    assert reports[1:] == reports[:1] * 2
+    assert reports[0][1]["reads"] == 300
 
 
 @pytest.mark.parametrize("L", [1, 100, 256])
@@ -387,6 +585,78 @@ def test_adapter_and_hash_kernels_on_card(card, n, L):
                 torch.cuda.synchronize()
                 assert dedup.read_hashes.launches == before + 1
                 assert torch.equal(got, want), (spec, misaligned)
+
+
+@pytest.mark.parametrize("n,L", CARD_SHAPES)
+def test_qc_stats_out_on_card(card, n, L):
+    """Three batches (n_records n, in between, 0 rows off alignment) added
+    into one out equal the sum of the plain version's leaves, for every
+    option set, with and without codes."""
+    batches = []
+    for b, (spec, misaligned) in enumerate(((None, False), ("mid", True),
+                                            (0, False))):
+        seq, qual, lengths, codes = _batch(n, L, seed=7 * n + L + b)
+        batches.append((_on_card(seq, misaligned), _on_card(qual, misaligned),
+                        _on_card(lengths), _on_card(codes),
+                        _n_records(spec, n)))
+    for with_codes in (True, False):
+        for cs, rs, qh2d in OPTIONS:
+            kw = dict(count_scalars=cs, row_stats=rs, qual_hist_2d=qh2d)
+            total = want = None
+            for dseq, dqual, dlen, dcodes, nr in batches:
+                codes = dcodes if with_codes else None
+                before = stats.qc_stats.launches
+                total = stats.qc_stats(dseq, dqual, dlen, 33, n_records=nr,
+                                       error_codes=codes, out=total, **kw)
+                assert stats.qc_stats.launches == before + 1
+                part = stats.qc_stats_torch(dseq, dqual, dlen, 33,
+                                            n_records=nr, error_codes=codes,
+                                            **kw)
+                want = part if want is None else want.merge(part)
+            torch.cuda.synchronize()
+            for name, g, w in zip(want._fields, total, want):
+                assert (g is None) == (w is None), name
+                if g is not None:
+                    assert torch.equal(g, w), (name, with_codes, cs, rs, qh2d)
+            assert all(x.is_cuda for x in total if x is not None)
+            host = total.to_numpy()
+            for g, w in zip(host, want):
+                if w is not None:
+                    np.testing.assert_array_equal(g, w.cpu().numpy())
+
+
+@pytest.mark.parametrize("adapters", ADAPTER_SETS,
+                         ids=[a[0] for a in ADAPTER_SETS])
+@pytest.mark.parametrize("n,L", CARD_SHAPES)
+def test_adapter_contents_kernel_on_card(card, n, L, adapters):
+    """Every adapter of a list in one launch equals adapter_content_torch
+    per adapter, rows aligned and off alignment, n_records n / in between /
+    0, then the three batches added into one out."""
+    _, adapters = adapters
+    seq, lengths = _multi_adapter_batch(n, L, adapters, seed=n + L)
+    dlen = _on_card(lengths)
+    total, want = None, [None] * len(adapters)
+    for misaligned in (False, True):
+        dseq = _on_card(seq, misaligned)
+        for spec in (None, "mid", 0):
+            nr = _n_records(spec, n)
+            plain = [ad.adapter_content_torch(dseq, dlen, nr, adapter_host=a)
+                     for a in adapters]
+            before = ad.adapter_content.launches
+            got = ad._adapter_contents(dseq, dlen, nr, adapters)
+            torch.cuda.synchronize()
+            assert ad.adapter_content.launches == before + bool(adapters)
+            assert len(got) == len(adapters)
+            for k, (g, w) in enumerate(zip(got, plain)):
+                for name, x, y in zip(w._fields, g, w):
+                    assert torch.equal(x, y), (k, name, spec, misaligned)
+            total = ad._adapter_contents(dseq, dlen, nr, adapters, out=total)
+            want = [w if t is None else t.merge(w)
+                    for t, w in zip(want, plain)]
+    torch.cuda.synchronize()
+    for g, w in zip(total, want):
+        for x, y in zip(g, w):
+            assert torch.equal(x, y)
 
 
 def test_empty_batch_on_card(card):
