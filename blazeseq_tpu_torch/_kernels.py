@@ -76,8 +76,8 @@ _SIGNATURES = {
     # la_max, reads_scanned, stream
     "bs_adapter_contents": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
                             _P),
-    # seq, lengths, out, n, n_valid, L, sm_count, stream
-    "bs_read_hashes": (_P, _P, _P, _LL, _LL, _I, _I, _P),
+    # seq, lengths, out, n, n_valid, rows, L, sm_count, stream
+    "bs_read_hashes": (_P, _P, _P, _LL, _LL, _LL, _I, _I, _P),
 }
 
 

@@ -73,8 +73,8 @@ from ..fastq.quality import QualitySchema, parse_schema
 from ..io.readers import MemoryReader, MmapReader, open_reader
 from ..ops.adapter import _adapter_contents
 from ..ops.common import resolve_device, round_up
-from ..ops.dedup import (duplication_levels, overrepresented_sequences,
-                         read_hashes)
+from ..ops.dedup import (_read_hashes_into, duplication_levels,
+                         overrepresented_sequences)
 from ..ops.ragged_qc import ragged_qc
 from ..ops.stats import MAX_PHRED, QCAccumulator, zero_stats
 from ..ops.uniform_parse import UniformLayout, detect_uniform_layout
@@ -91,6 +91,9 @@ from ..parallel.sharding import find_record_boundary_bytes
 _WIDTH_UNIT = 128
 # run_parser flushes its device-resident totals to the host this often
 _FLUSH_EVERY = 64
+# run_parser's duplication sample starts with room for this many batches
+# (at most dup_track_limit rows) and doubles when full
+_DUP_SAMPLE_BATCHES = 64
 # the ragged tier's largest chunk: 2**28 bytes hold at most 2**25 records
 # with a quality byte, so a per-position Phred sum (at most 63 a record)
 # stays inside int32
@@ -337,7 +340,9 @@ class QCModel:
         scores = [] if self.align_to is not None else None
         counts = []  # records in each batch
         ad_totals = None  # one AdapterStats an adapter, a running total
-        dup_hashes = [] if self.track_duplicates else None
+        # the duplication sample: int64 [rows, 2] hashes on the device,
+        # rows [0, dup_seen) filled, and the host's 50 bp prefixes
+        dup_hashes = None
         dup_prefixes = []
         dup_seen = 0
         for pb in parser.padded_batches(self.batch_size,
@@ -375,16 +380,19 @@ class QCModel:
                                                      n_step)
                 ad_totals = _adapter_contents(rows, lens, n_rows,
                                               self.adapters, out=ad_totals)
-            if dup_hashes is not None and dup_seen < self.dup_track_limit:
+            if (self.track_duplicates and n
+                    and dup_seen < self.dup_track_limit):
                 take = min(n, self.dup_track_limit - dup_seen)
-                if mesh is None:
-                    h = read_hashes(seq, lengths, n)[:take]
-                else:
+                hseq, hlens = seq, lengths
+                if mesh is not None:
                     # whole rows, as the reference's separate pass
                     whole = replicated(mesh)
-                    h = read_hashes(whole.local(pb.seq[:take]), whole.local(
-                        np.asarray(pb.lengths[:take], np.int32)), take)
-                dup_hashes.append(h)
+                    hseq, hlens = whole.local(pb.seq[:take]), whole.local(
+                        np.asarray(pb.lengths[:take], np.int32))
+                dup_hashes = self._dup_room(dup_hashes, dup_seen + take,
+                                            hseq.device)
+                # only the sampled rows, straight into the sample
+                _read_hashes_into(hseq, hlens, n, dup_hashes, dup_seen, take)
                 # 50 bp representative prefixes for the overrepresented list
                 dup_prefixes.append(
                     np.array(pb.seq[:take, : min(50, pb.seq.shape[1])]))
@@ -409,8 +417,8 @@ class QCModel:
                     mesh, st, mesh.mesh_dim_names)).to_numpy()
                 # an adapter listed twice counts twice, as in the reference
                 panels[a] = st if a not in panels else panels[a].merge(st)
-        if dup_hashes is not None:
-            extra.update(self._dup_report(dup_hashes, dup_prefixes))
+        if self.track_duplicates:
+            extra.update(self._dup_report(dup_hashes, dup_seen, dup_prefixes))
         return self._report_from_acc(acc, **extra)
 
     def _rank_rows(self, pb, seq, lengths, n):
@@ -993,12 +1001,28 @@ class QCModel:
             quality_quartiles=acc.per_position_quality_quartiles(),
             per_pos_qual_hist=np.asarray(t.per_pos_qual_hist))
 
+    def _dup_room(self, buf, need, device):
+        """The duplication sample with room for `need` rows: made at the
+        first tracked batch for min(dup_track_limit, _DUP_SAMPLE_BATCHES
+        batches) rows, doubled (one copy) when full."""
+        size = 0 if buf is None else buf.shape[0]
+        if need <= size:
+            return buf
+        rows = min(self.dup_track_limit, max(
+            need, 2 * size, _DUP_SAMPLE_BATCHES * self.batch_size))
+        grown = torch.empty((rows, 2), dtype=torch.int64, device=device)
+        if size:
+            grown[:size] = buf
+        return grown
+
     @staticmethod
-    def _dup_report(dup_hashes, dup_prefixes) -> dict:
-        """The duplication panel's fields from the sampled hashes (int64
-        device tensors holding uint32 values) and 50 bp prefixes."""
-        h = (torch.cat(dup_hashes).cpu().numpy().astype(np.uint32)
-             if dup_hashes else np.empty((0, 2), np.uint32))
+    def _dup_report(dup_hashes, dup_seen, dup_prefixes) -> dict:
+        """The duplication panel's fields from the sample's first
+        `dup_seen` rows (int64 on the device holding uint32 values; None
+        for none) and the 50 bp prefixes, in one device-to-host copy."""
+        h = (dup_hashes[:dup_seen].cpu().numpy().astype(np.uint32)
+             if dup_hashes is not None
+             else np.empty((0, 2), np.uint32))
         pfx = (np.concatenate(dup_prefixes)
                if dup_prefixes else np.empty((0, 0), np.uint8))
         levels, frac_unique = duplication_levels(h)

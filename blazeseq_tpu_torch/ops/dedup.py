@@ -11,7 +11,9 @@ a byte (< 2^8) times a power (< 2^32) stays below 2^40, and a row sum of L
 masked products below L * 2^32. That is `read_hashes_torch`, the plain
 version; `read_hashes` dispatches on the tensors' device: CPU tensors take
 the plain version, CUDA tensors the hand-written kernel in csrc/dedup.cu
-(native wrapping uint32 arithmetic), or the call raises.
+(native wrapping uint32 arithmetic), or the call raises. `_read_hashes_into`
+hashes the first rows of a batch into rows of a larger buffer, so that a
+run's duplication sample lives in one tensor on the card.
 """
 
 from __future__ import annotations
@@ -59,22 +61,49 @@ def read_hashes_torch(seq, lengths, n_records=None) -> torch.Tensor:
     return torch.stack(out, 1)
 
 
-def _read_hashes_cuda(seq, lengths, n_records):
-    check_cuda_batch("read_hashes", [("seq", seq)], [("lengths", lengths)])
-    n, L = seq.shape
-    dev = seq.device
+def _read_hashes_into(seq, lengths, n_records, out, at, rows) -> None:
+    """Hash rows [0, rows) of a padded batch into out[at:at + rows].
+
+    `out` is int64 [N, 2] on the batch's device and holds uint32 values, as
+    `read_hashes` returns them; rows of the batch at or past n_records (a
+    host int, None for all) get the sentinel, and the other rows of `out`
+    are left alone. CUDA tensors run the kernel (counted in
+    `read_hashes.launches`) or raise; CPU tensors run `read_hashes_torch`
+    on the first `rows` rows and copy the result in."""
+    if seq.is_cuda:
+        check_cuda_batch("read_hashes", [("seq", seq)], [("lengths", lengths)])
+    elif seq.device.type != "cpu":
+        raise ValueError("read_hashes: unsupported device %s" % seq.device)
+    n = seq.shape[0]
+    if not 0 <= rows <= n:
+        raise ValueError("read_hashes: %d rows of a batch of %d" % (rows, n))
+    if (out.dtype != torch.int64 or out.dim() != 2 or out.shape[1] != 2
+            or not out.is_contiguous()):
+        raise ValueError("read_hashes: out must be a contiguous int64 "
+                         "[N, 2] tensor")
+    if not (0 <= at and at + rows <= out.shape[0]):
+        raise ValueError("read_hashes: rows [%d, %d) outside out's %d"
+                         % (at, at + rows, out.shape[0]))
+    if out.device != seq.device:
+        raise ValueError("read_hashes: out on %s, the batch on %s"
+                         % (out.device, seq.device))
     n_valid = n if n_records is None else min(n, max(int(n_records), 0))
-    out = torch.empty((n, 2), dtype=torch.int64, device=dev)
-    if n == 0:
-        return out
+    if not seq.is_cuda:
+        out[at:at + rows] = read_hashes_torch(seq[:rows], lengths[:rows],
+                                              min(n_valid, rows))
+        return
+    if rows == 0:
+        return
     lib = _kernels.load()
-    args = (seq.data_ptr(), lengths.data_ptr(), out.data_ptr(), n, n_valid,
-            L, _kernels.sm_count(dev.index), _kernels.stream_ptr(dev))
+    dev = seq.device
+    # out[at] starts 16 * at bytes into out (contiguous int64 [N, 2])
+    args = (seq.data_ptr(), lengths.data_ptr(), out.data_ptr() + 16 * at, n,
+            n_valid, rows, seq.shape[1], _kernels.sm_count(dev.index),
+            _kernels.stream_ptr(dev))
     with _kernels.on_device(dev):
         err = lib.bs_read_hashes(*args)
     _kernels.check(err, "bs_read_hashes")
     read_hashes.launches += 1
-    return out
 
 
 def read_hashes(seq, lengths, n_records=None) -> torch.Tensor:
@@ -85,11 +114,15 @@ def read_hashes(seq, lengths, n_records=None) -> torch.Tensor:
     padding rows (row >= n_records, a host int) get the all-ones sentinel,
     which the host side drops. CPU tensors run `read_hashes_torch`; CUDA
     tensors run the kernel (counted in `read_hashes.launches`) or raise."""
-    if seq.is_cuda:
-        return _read_hashes_cuda(seq, lengths, n_records)
-    if seq.device.type != "cpu":
-        raise ValueError("read_hashes: unsupported device %s" % seq.device)
-    return read_hashes_torch(seq, lengths, n_records)
+    if not seq.is_cuda:
+        if seq.device.type != "cpu":
+            raise ValueError("read_hashes: unsupported device %s"
+                             % seq.device)
+        return read_hashes_torch(seq, lengths, n_records)
+    n = seq.shape[0] if seq.dim() else 0
+    out = torch.empty((n, 2), dtype=torch.int64, device=seq.device)
+    _read_hashes_into(seq, lengths, n_records, out, 0, n)
+    return out
 
 
 read_hashes.launches = 0

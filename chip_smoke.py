@@ -1139,14 +1139,18 @@ def phase_padded_panels(seed):
     PANEL_EDGE_WIDTHS, rows aligned and one byte off, offsets 33 and 64,
     n_records n, in between and 0 (col_offset 5 and no codes in between),
     every option set, adapters of 0, 1 and 12 bytes, the adapter sets of
-    ADAPTER_SETS in one launch each, and PANEL_TALL; and the running totals:
+    ADAPTER_SETS in one launch each, the hashes also into a larger sample
+    (every row, a cut, one row; at 0 and 7) and with negative lengths, and
+    PANEL_TALL; and the running totals:
     three batches added into one qc_stats out= (every option set) and one
     _adapter_contents out= (every adapter set) against the sums of the plain
     versions. Returns one JSON record per kernel, timed at PANEL_SHAPE with
     n_records = n (qc_stats with the default options; with the quartile leaf,
     at PANEL_WIDE and into a running total under `variants`; the adapter
     kernel with ADAPTER, and with FASTQC_ADAPTERS in one launch under
-    `variants`), each with the launch floor beside it."""
+    `variants`; read_hashes into a sample buffer, with the call that
+    returns a new tensor beside it and PANEL_WIDE under `variants`), each
+    with the launch floor beside it."""
     import torch
 
     from blazeseq_tpu_torch.ops import adapter as ad
@@ -1192,9 +1196,23 @@ def phase_padded_panels(seed):
                                                      adapter_host=a),
                          "_adapter_contents %s %d adapters, %r n_records %d"
                          % (label, len(adapters), a, nr))
-            same((dedup.read_hashes(dseq, dlen, nr),),
-                 (dedup.read_hashes_torch(dseq, dlen, nr),),
-                 "read_hashes %s n_records %d" % (label, nr))
+            compare_hashes(dseq, dlen, nr, label)
+
+    def compare_hashes(dseq, dlen, nr, label):
+        """read_hashes, and _read_hashes_into a larger sample (every row, a
+        cut, one row; at 0 and 7), against read_hashes_torch."""
+        plain = dedup.read_hashes_torch(dseq, dlen, nr)
+        same((dedup.read_hashes(dseq, dlen, nr),), (plain,),
+             "read_hashes %s n_records %d" % (label, nr))
+        n = dseq.shape[0]
+        for rows, at in ((n, 0), (n // 2 + 1, 7), (1, 7)):
+            got = torch.full((at + rows + 3, 2), -5, dtype=torch.int64,
+                             device="cuda")
+            want = got.clone()
+            want[at:at + rows] = plain[:rows]
+            dedup._read_hashes_into(dseq, dlen, nr, got, at, rows)
+            same((got,), (want,), "_read_hashes_into %s n_records %d, "
+                 "rows %d at %d" % (label, nr, rows, at))
 
     def compare_totals(batches, label):
         """Three batches added into one out against the plain sums."""
@@ -1280,14 +1298,22 @@ def phase_padded_panels(seed):
                     for a in FASTQC_ADAPTERS], inner=1),
                 launch_floor_ms=floor,
                 **adapter_bound(d[0], d[2], n, FASTQC_ADAPTERS))
-            recs["read_hashes"] = dict(
-                shape=[n, L], ms=cuda_ms(lambda: dedup.read_hashes(
-                    d[0], d[2], n)),
-                plain_ms=cuda_ms(lambda: dedup.read_hashes_torch(
-                    d[0], d[2], n), inner=2),
-                launch_floor_ms=floor,
-                **hash_bound(lengths, L, n, n))
-        del d, batches
+        # read_hashes: `ms` is a call into a sample buffer, as run_parser
+        # makes it; under `variants` the call that returns a new tensor,
+        # and the wide shape
+        sample = torch.empty((2 * n, 2), dtype=torch.int64, device="cuda")
+        hrec = dict(
+            shape=[n, L], ms=cuda_ms(lambda: dedup._read_hashes_into(
+                d[0], d[2], n, sample, n, n)),
+            new_tensor_ms=cuda_ms(lambda: dedup.read_hashes(d[0], d[2], n)),
+            plain_ms=cuda_ms(lambda: dedup.read_hashes_torch(
+                d[0], d[2], n), inner=2),
+            launch_floor_ms=floor, **hash_bound(lengths, L, n, n))
+        if (n, L) == PANEL_SHAPE:
+            recs["read_hashes"] = dict(hrec, variants={})
+        else:
+            recs["read_hashes"]["variants"]["%dx%d" % (n, L)] = hrec
+        del d, batches, sample
     for L in PANEL_EDGE_WIDTHS:
         batches = []
         for offset in (33, 64):
@@ -1295,11 +1321,17 @@ def phase_padded_panels(seed):
             lengths[:4] = (0, L, L + 1, 2 * L + 1)
             dlen, dcodes = (torch.from_numpy(a).cuda()
                             for a in (lengths, codes))
+            # negative lengths: the hashes mix them in, unclipped
+            neg = lengths.copy()
+            neg[4:6] = (-1, -L - 7)
             for off in (0, 1):
                 b = (_card_rows(seq, off), _card_rows(qual, off), dlen,
                      dcodes, offset)
                 compare_all(*b, "L=%d offset %d off %d" % (L, offset, off))
                 batches.append(b)
+                for nr in (300, 151, 0):
+                    compare_hashes(b[0], torch.from_numpy(neg).cuda(), nr,
+                                   "L=%d off %d negative lengths" % (L, off))
         compare_totals(batches[1:], "L=%d" % L)
     n, L = PANEL_TALL
     d = [torch.from_numpy(a).cuda() for a in panel_inputs(rng, n, L)]
@@ -1312,11 +1344,17 @@ def phase_padded_panels(seed):
         log("%s %s: kernel %.4f ms, plain %.4f ms, bound %.5f ms (%s)"
             % (name, rec["shape"], rec["ms"], rec["plain_ms"],
                rec["bound_ms"], rec["bound_by"]))
-    for tag, rec in list(variants.items()) + list(ad_variants.items()):
+    for tag, rec in (list(variants.items()) + list(ad_variants.items())
+                     + list(recs["read_hashes"]["variants"].items())):
         log("%s %s: kernel %.4f ms, plain %.4f ms, bound %.5f ms (%s)"
             % ("adapter_content" if tag.startswith("adapters") else
+               "read_hashes" if tag in recs["read_hashes"]["variants"] else
                "qc_stats", tag, rec["ms"], rec["plain_ms"], rec["bound_ms"],
                rec["bound_by"]))
+    for tag, rec in [("%dx%d" % PANEL_SHAPE, recs["read_hashes"]),
+                     *recs["read_hashes"]["variants"].items()]:
+        log("read_hashes %s: into a sample %.4f ms a call, into a new "
+            "tensor %.4f ms" % (tag, rec["ms"], rec["new_tensor_ms"]))
     log("padded-batch panel kernels == plain on %d cases" % n_cases)
     return recs
 
@@ -1916,10 +1954,58 @@ def _align_kw(seed):
                 track_duplicates=True, track_quartiles=True)
 
 
+def dup_oracle(path, n_sample):
+    """The duplication panel of the first `n_sample` uniform records of
+    `path` in numpy alone: both wrapping uint32 hashes of each read (its
+    READ_LEN bases, the length mixed in) as uint64 products masked to 32
+    bits, then (levels, frac_unique, {prefix: count} of the reads above
+    0.1% of the sample)."""
+    m32 = np.uint64(0xFFFFFFFF)
+    recs = np.fromfile(path, np.uint8, n_sample * RS).reshape(-1, RS)
+    seq = recs[:, len(HEADER) + 1:len(HEADER) + 1 + READ_LEN]
+    keys = np.zeros(len(seq), np.uint64)
+    for base, salt, shift in ((1000003, 2654435761, 32),
+                              (0x01000193, 0x9E3779B1, 0)):
+        p = np.ones(READ_LEN, np.uint64)
+        for j in range(1, READ_LEN):
+            p[j] = (int(p[j - 1]) * base) & 0xFFFFFFFF
+        h = ((seq.astype(np.uint64) * p) & m32).sum(1, dtype=np.uint64)
+        h = (h + np.uint64(READ_LEN * salt)) & m32
+        keys |= h << np.uint64(shift)
+    _, first, counts = np.unique(keys, return_index=True, return_counts=True)
+    levels = np.bincount(np.minimum(counts, 10), minlength=11)
+    hot = (counts > 1) & (counts / len(keys) > 0.001)
+    prefixes = {seq[i, :50].tobytes(): int(c)
+                for i, c in zip(first[hot], counts[hot])}
+    return levels, float((counts == 1).sum()) / len(keys), prefixes
+
+
+def check_dup_panel(rep, path, n_sample, label):
+    """rep's duplication panel against dup_oracle: levels and the unique
+    fraction equal; the overrepresented list the oracle's most frequent
+    reads (at most 20, most frequent first, ties in any order)."""
+    levels, frac, hot = dup_oracle(path, n_sample)
+    if not np.array_equal(np.asarray(rep.duplication_levels), levels):
+        raise AssertionError("%s: duplication levels %s, oracle %s" % (
+            label, list(rep.duplication_levels), list(levels)))
+    if rep.frac_unique_reads != frac:
+        raise AssertionError("%s: unique fraction %r, oracle %r"
+                             % (label, rep.frac_unique_reads, frac))
+    got = rep.overrepresented
+    counts = sorted(hot.values(), reverse=True)[:20]
+    if ([c for _, c in got] != counts
+            or any(hot.get(p) != c for p, c in got)):
+        raise AssertionError("%s: overrepresented %s, oracle's top %s"
+                             % (label, got[:3], counts[:3]))
+    return len(hot)
+
+
 def phase_align_run_file(seed, files, oracle, keep):
     """QCModel(align_to=..., adapters, duplicates, quartiles).run_file on
-    1M reads x 150 bp on the card: core panels against the oracle, 2,000
-    alignment scores against the numpy twin, and every panel of a
+    1M reads x 150 bp on the card: core panels against the oracle, the
+    duplication panel of the default 200,000-read sample against
+    dup_oracle, 2,000 alignment scores against the numpy twin, and every
+    panel of a
     20,000-read prefix against the same call on the CPU. The report and
     its wall time go into `keep` for the mesh path."""
     import torch
@@ -1957,12 +2043,15 @@ def phase_align_run_file(seed, files, oracle, keep):
                              "%d planted" % (hits, ALIGN_READS // 8))
     if rep.frac_unique_reads >= 1.0:
         raise AssertionError("run_file: no duplicate found")
+    sample = min(model.dup_track_limit, ALIGN_READS)
+    n_hot = check_dup_panel(rep, path, sample, "run_file")
     size = ALIGN_READS * RS
     log("run_file(align_to, adapters, duplicates, quartiles): %d reads "
         "in %.3f s, %.0f reads/s, %.3f GB/s; adapter in %d reads, "
-        "unique %.4f; first %d scores == numpy twin"
+        "unique %.4f; duplication panel of the first %d reads == numpy "
+        "oracle (%d overrepresented); first %d scores == numpy twin"
         % (ALIGN_READS, wall, ALIGN_READS / wall, size / wall / 1e9,
-           hits, rep.frac_unique_reads, TWIN_SAMPLE))
+           hits, rep.frac_unique_reads, sample, n_hot, TWIN_SAMPLE))
     gpu = QCModel(device="cuda", **kw).run_file(prefix)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3019,7 +3108,10 @@ def _no_plain_on_card():
     """Wrap the plain torch versions of the kernels that the host route's
     steps dispatch to (ops/nw.py's wavefronts, qc_stats_torch,
     adapter_content_torch and read_hashes_torch) so that a call with a
-    CUDA tensor raises; returns a function that unwraps them."""
+    CUDA tensor raises; returns a function that unwraps them. The plain
+    branches of read_hashes and of _read_hashes_into (the duplication
+    sample) both call read_hashes_torch by the module's name, so both are
+    covered."""
     from blazeseq_tpu_torch.ops import adapter, dedup, nw, stats
 
     saved = [(nw, n) for n in ["nw_scores_torch"] + [

@@ -35,11 +35,14 @@ compare two commits on one card). Shapes:
   `qc_stats` with the default options and with the quartile leaf (and at
   32,768 x 1,024 with it), `adapter_content` with chip_smoke's adapter,
   FastQC's six adapters (`adapters_6`: one `_adapter_contents` launch
-  where the tree has it, else six calls), `read_hashes`, and the whole
-  padded step as `run_file` drives it (`build_qc_align_step` with
-  alignment and quartiles, then the adapters and the hashes, adding into
-  running totals where the tree keeps them, else merging), with the
-  chip_smoke adapter and with the six; the device time of an empty launch
+  where the tree has it, else six calls), `read_hashes` (also at 32,768
+  x 1,024, and into a sample buffer, `read_hashes_into_*`, where the tree
+  has `_read_hashes_into`), and the whole padded step as `run_file`
+  drives it (`build_qc_align_step` with alignment and quartiles, then the
+  adapters and the hashes, adding into running totals where the tree
+  keeps them, else merging; the hashes into a sample buffer where the
+  tree has one, else a new tensor), with the chip_smoke adapter and with
+  the six; the device time of an empty launch
   (`launch_floor_ms`); in a tree without the panel kernels these are its
   torch ops;
 * the CUDA kernel launches of one `run_file(align_to, adapters,
@@ -268,6 +271,20 @@ def _panels(cs, seed):
                       label)
             out[label] = dict(_times(call), bound_ms=cs.qc_stats_bound(
                 lengths, L, n, q2)["bound_ms"])
+        label = "read_hashes_%dx%d" % (n, L)
+        hbound = cs.hash_bound(lengths, L, n, n)["bound_ms"]
+        if hasattr(dedup, "read_hashes_torch"):
+            _same((dedup.read_hashes(d[0], d[2], n),),
+                  (dedup.read_hashes_torch(d[0], d[2], n),), label)
+        out[label] = dict(_times(lambda: dedup.read_hashes(d[0], d[2], n)),
+                          bound_ms=hbound)
+        if hasattr(dedup, "_read_hashes_into"):
+            # the call run_parser makes: into rows of its sample buffer
+            sample = torch.empty((2 * n, 2), dtype=torch.int64,
+                                 device="cuda")
+            out["read_hashes_into_%dx%d" % (n, L)] = dict(_times(
+                lambda: dedup._read_hashes_into(d[0], d[2], n, sample, n,
+                                                n)), bound_ms=hbound)
         if (n, L) != cs.PANEL_SHAPE:
             continue
         label = "adapter_content_%dx%d" % (n, L)
@@ -296,12 +313,6 @@ def _panels(cs, seed):
         out["adapters_6_%dx%d" % (n, L)] = dict(
             _times(adapters6),
             bound_ms=cs.adapter_bound(d[0], d[2], n, six)["bound_ms"])
-        label = "read_hashes_%dx%d" % (n, L)
-        if hasattr(dedup, "read_hashes_torch"):
-            _same((dedup.read_hashes(d[0], d[2], n),),
-                  (dedup.read_hashes_torch(d[0], d[2], n),), label)
-        out[label] = dict(_times(lambda: dedup.read_hashes(d[0], d[2], n)),
-                          bound_ms=cs.hash_bound(lengths, L, n, n)["bound_ms"])
         kw = cs._align_kw(seed)
         ref = torch.from_numpy(np.frombuffer(kw["align_to"], np.uint8)
                                .copy()).cuda()
@@ -310,6 +321,7 @@ def _panels(cs, seed):
         # the step as run_file drives it: into running totals where the
         # tree keeps them (one launch for the adapters), else a merge
         totals = {}
+        sample = torch.empty((2 * n, 2), dtype=torch.int64, device="cuda")
 
         def padded_step(adapters=(cs.ADAPTER,)):
             if hasattr(ad, "_adapter_contents"):
@@ -326,7 +338,12 @@ def _panels(cs, seed):
                     ast = ad.adapter_content(d[0], d[2], n, adapter_host=a)
                     totals[a] = (ast if a not in totals
                                  else totals[a].merge(ast))
-            dedup.read_hashes(d[0], d[2], n)
+            # the hashes into the duplication sample where the tree keeps
+            # one, else a new tensor a batch
+            if hasattr(dedup, "_read_hashes_into"):
+                dedup._read_hashes_into(d[0], d[2], n, sample, n, n)
+            else:
+                dedup.read_hashes(d[0], d[2], n)
 
         out["padded_step_%dx%d" % (n, L)] = _times(padded_step, inner=5)
         out["padded_step_6_adapters_%dx%d" % (n, L)] = _times(

@@ -169,3 +169,112 @@ def test_hashes_and_adapters_on_card(n, L, n_records):
     for a, b in zip(ad.adapter_content(*gpu, nr, adapter_host=ADAPTER),
                     ad.adapter_content(*cpu, nr, adapter_host=ADAPTER)):
         assert torch.equal(a.cpu(), b)
+
+
+# ------------------------------------------- the sample in run_file
+
+DUP_BATCH = 4096
+# 0, under one batch, a cut inside the first batch, exactly one and two
+# batches, and more than the file holds (DUP_READS)
+DUP_LIMITS = [0, 1, 700, DUP_BATCH, 2 * DUP_BATCH, 20_000]
+DUP_READS = 9_000
+_DUP_REFERENCE = {}
+
+
+@pytest.fixture(scope="module")
+def dup_file(tmp_path_factory):
+    """DUP_READS reads of 30-160 bp over three batches of DUP_BATCH (some
+    longer than the 128 width), every 9th read a copy of one of seven
+    templates, so the sample holds duplicates and overrepresented reads."""
+    import blazeseq_tpu_torch as bt
+
+    lines = bytes(bt.generate_synthetic_fastq_buffer(
+        DUP_READS, 30, 160, 2, 40, "sanger")).split(b"\n")
+    for r in range(8, DUP_READS, 9):
+        t = r % 7
+        lines[4 * r + 1] = lines[4 * t + 1]
+        lines[4 * r + 3] = lines[4 * t + 3]
+    path = tmp_path_factory.mktemp("dups") / "dups.fastq"
+    path.write_bytes(b"\n".join(lines))
+    return str(path)
+
+
+def _dup_kw(limit):
+    return dict(quality_schema="sanger", batch_size=DUP_BATCH,
+                max_read_len=128, track_duplicates=True,
+                dup_track_limit=limit)
+
+
+def _same_dup_report(port, ref, limit):
+    assert port.to_dict() == ref.to_dict()
+    np.testing.assert_array_equal(np.asarray(ref.duplication_levels),
+                                  port.duplication_levels)
+    assert port.frac_unique_reads == ref.frac_unique_reads
+    assert port.overrepresented == ref.overrepresented
+    assert port.reads == DUP_READS
+    sampled = min(limit, DUP_READS)
+    levels = np.asarray(port.duplication_levels)
+    assert (levels.sum() > 0) == (sampled > 0)
+    if sampled >= DUP_BATCH:
+        assert port.overrepresented  # the seven templates
+
+
+@pytest.mark.parametrize("sample_batches", [64, 1])
+@pytest.mark.parametrize("limit", DUP_LIMITS)
+def test_run_file_dup_track_limit_matches_reference(dup_file, limit,
+                                                    sample_batches,
+                                                    monkeypatch):
+    """QCModel.run_file's duplication panel (one sample buffer, hashed
+    into at the rows seen so far) equals the reference's for every limit;
+    with room for one batch at the start, the sample doubles as it
+    fills."""
+    models = pytest.importorskip("blazeseq_tpu.models")
+    from blazeseq_tpu_torch.models import qc as qc_mod
+
+    if limit not in _DUP_REFERENCE:
+        _DUP_REFERENCE[limit] = models.QCModel(**_dup_kw(limit)).run_file(
+            dup_file)
+    monkeypatch.setattr(qc_mod, "_DUP_SAMPLE_BATCHES", sample_batches)
+    port = qc_mod.QCModel(device="cpu", **_dup_kw(limit)).run_file(dup_file)
+    _same_dup_report(port, _DUP_REFERENCE[limit], limit)
+
+
+@pytest.mark.parametrize("limit,sizes", [
+    (20_000, [4096, 4096, 8192, 16384, 16384, 20000]),
+    (5000, [4096, 4096, 5000]),
+    (300, [300])])
+def test_dup_sample_doubles_when_full(monkeypatch, limit, sizes):
+    """The sample is made for min(limit, _DUP_SAMPLE_BATCHES batches) rows,
+    kept while it has room and doubled (up to the limit) when full."""
+    from blazeseq_tpu_torch.models import qc as qc_mod
+
+    monkeypatch.setattr(qc_mod, "_DUP_SAMPLE_BATCHES", 1)
+    model = qc_mod.QCModel(device="cpu", **_dup_kw(limit))
+    buf, got = None, []
+    needs = [300, 4096, 4500, 9000, 16000, 20000][:len(sizes)]
+    for need in needs:
+        grown = model._dup_room(buf, min(need, limit), torch.device("cpu"))
+        if buf is not None and grown is not buf:
+            # one copy of the filled rows into the new buffer
+            assert torch.equal(grown[:buf.shape[0]], buf)
+        if buf is not None and grown.shape == buf.shape:
+            assert grown is buf  # no new buffer while there is room
+        buf = grown
+        buf.fill_(len(got))
+        got.append(buf.shape[0])
+    assert got == sizes
+
+
+@pytest.mark.parametrize("limit", DUP_LIMITS)
+def test_run_file_dup_track_limit_on_card(dup_file, limit):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from blazeseq_tpu_torch import QCModel
+
+    before = dedup.read_hashes.launches
+    gpu = QCModel(device="cuda", **_dup_kw(limit)).run_file(dup_file)
+    # one launch a batch that the sample reaches
+    assert dedup.read_hashes.launches - before == -(
+        -min(limit, DUP_READS) // DUP_BATCH)
+    _same_dup_report(gpu, QCModel(device="cpu", **_dup_kw(limit)).run_file(
+        dup_file), limit)

@@ -3,8 +3,8 @@ ops/adapter.py::adapter_content and _adapter_contents,
 ops/dedup.py::read_hashes) against the reference's jitted functions in
 blazeseq_tpu/ops/{stats,adapter,dedup}.py.
 
-The edge set: widths 1, 7, 16, 33 and 256; lengths 0, up to L and past it
-up to 2L + 1; n_records 0, n and in between; Phred offsets 33 and 64 with
+The edge set: widths 1, 7, 16, 33 and 256 (and 1024 for the hashes);
+lengths 0, up to L and past it up to 2L + 1 (and negative for the hashes); n_records 0, n and in between; Phred offsets 33 and 64 with
 quality bytes below the offset and above offset + 63; col_offset 5 and
 error_codes None; lowercase bases, 0x00, space and high-bit bytes; an
 adapter of one byte, one planted so that it fits only at the last column,
@@ -16,6 +16,10 @@ list at once: none, one, FastQC's six, one longer than the row, one in
 lower case) equals the reference per adapter, with and without out=; an
 out of another shape, or of loose leaves, raises; QCModel's device totals
 give the same report whatever their flush period.
+
+The duplication sample: _read_hashes_into writes the reference's first
+`rows` hashes into rows [at, at + rows) of a larger buffer and nothing
+else, and refuses rows or buffers that do not fit.
 
 On the CPU the dispatchers run their plain torch versions and count no
 launch. The card cases hold each CUDA kernel (csrc/qc_stats.cu,
@@ -203,6 +207,74 @@ def test_read_hashes_equal_reference(L, records):
         assert ((got >= 0) & (got <= 0xFFFFFFFF)).all()
         np.testing.assert_array_equal(want, got.astype(np.uint32))
     assert dedup.read_hashes.launches == before
+
+
+# the hash kernel's edge widths: one piece a row, pieces cut by L % 16, 16
+# lanes a row, and 32 lanes with two pieces each
+HASH_WIDTHS = WIDTHS + [1024]
+# (label, rows hashed): every row, a cut in the middle, one row
+HASH_ROWS = [("all", N_ROWS), ("cut", N_ROWS // 2 + 3), ("one", 1)]
+
+
+@pytest.mark.parametrize("at", [0, 11])
+@pytest.mark.parametrize("rows", HASH_ROWS, ids=[r[0] for r in HASH_ROWS])
+@pytest.mark.parametrize("records", RECORDS, ids=[r[0] for r in RECORDS])
+@pytest.mark.parametrize("L", HASH_WIDTHS)
+def test_read_hashes_into_equals_reference(L, records, rows, at):
+    """_read_hashes_into (the plain branch) writes the reference's first
+    `rows` hashes into out[at:at + rows] of a larger buffer and leaves the
+    rest alone; lengths 0, L, L + 1, 2L + 1 and negative, n_records n, in
+    between and 0, duplicated rows."""
+    jnp, _, _, ref_dedup = _ref()
+    _, spec, _, _ = records
+    _, take = rows
+    seq, _, lengths, _ = _batch(N_ROWS, L, seed=3 * L + 1)
+    lengths[4:6] = (-1, -L - 7)
+    seq[N_ROWS - 6:] = seq[6]  # duplicated rows
+    lengths[N_ROWS - 6:] = lengths[6]
+    nr = _n_records(spec, N_ROWS)
+    want = np.asarray(ref_dedup.read_hashes(
+        jnp.asarray(seq), jnp.asarray(lengths),
+        None if nr is None else jnp.int32(nr)))[:take]
+    out = torch.full((at + take + 5, 2), -5, dtype=torch.int64)
+    before = dedup.read_hashes.launches
+    assert dedup._read_hashes_into(torch.from_numpy(seq),
+                                   torch.from_numpy(lengths), nr, out, at,
+                                   take) is None
+    assert dedup.read_hashes.launches == before
+    got = out.numpy()
+    assert ((got[at:at + take] >= 0)
+            & (got[at:at + take] <= 0xFFFFFFFF)).all()
+    np.testing.assert_array_equal(want, got[at:at + take].astype(np.uint32))
+    assert (got[:at] == -5).all() and (got[at + take:] == -5).all()
+
+
+def test_read_hashes_into_refusals():
+    seq = torch.zeros((6, 16), dtype=torch.uint8)
+    lengths = torch.full((6,), 9, dtype=torch.int32)
+    out = torch.zeros((8, 2), dtype=torch.int64)
+    for kw, msg in [
+            (dict(rows=7), "7 rows of a batch of 6"),
+            (dict(rows=-1), "-1 rows"),
+            (dict(at=3, rows=6), r"rows \[3, 9\) outside out's 8"),
+            (dict(at=-1), r"rows \[-1, 5\)"),
+            (dict(out=out.to(torch.int32)), "contiguous int64"),
+            (dict(out=torch.zeros((8, 3), dtype=torch.int64)),
+             "contiguous int64"),
+            (dict(out=torch.zeros((2, 8), dtype=torch.int64).t()),
+             "contiguous int64"),
+            (dict(out=torch.zeros((8, 2), dtype=torch.int64,
+                                  device="meta")), "out on meta")]:
+        args = dict(out=out, at=0, rows=6)
+        args.update(kw)
+        with pytest.raises(ValueError, match=msg):
+            dedup._read_hashes_into(seq, lengths, None, args["out"],
+                                    args["at"], args["rows"])
+    assert (out == 0).all()
+    meta = seq.to("meta")
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        dedup._read_hashes_into(meta, lengths.to("meta"), None,
+                                out.to("meta"), 0, 6)
 
 
 def _ref_qc_stats(ref_stats, jnp, seq, qual, lengths, codes, offset, nr,
@@ -585,6 +657,34 @@ def test_adapter_and_hash_kernels_on_card(card, n, L):
                 torch.cuda.synchronize()
                 assert dedup.read_hashes.launches == before + 1
                 assert torch.equal(got, want), (spec, misaligned)
+
+
+@pytest.mark.parametrize("n,L", CARD_SHAPES)
+def test_read_hashes_into_kernel_on_card(card, n, L):
+    """_read_hashes_into on the card equals read_hashes_torch's first rows:
+    rows aligned and off 16-byte alignment, negative lengths, n_records n,
+    in between and 0, every row, a cut and one row, at 0 and 11 into a
+    larger buffer, whose other rows stay as they were."""
+    seq, _, lengths, _ = _batch(n, L, seed=n + 3 * L)
+    lengths[4:6] = (-1, -L - 7)
+    dlen = _on_card(lengths)
+    for misaligned in (False, True):
+        dseq = _on_card(seq, misaligned)
+        for spec in (None, "mid", 0):
+            nr = _n_records(spec, n)
+            full = dedup.read_hashes_torch(dseq, dlen, nr)
+            for rows in (n, n // 2 + 3, 1):
+                for at in (0, 11):
+                    out = torch.full((at + rows + 5, 2), -5,
+                                     dtype=torch.int64, device="cuda")
+                    before = dedup.read_hashes.launches
+                    dedup._read_hashes_into(dseq, dlen, nr, out, at, rows)
+                    torch.cuda.synchronize()
+                    assert dedup.read_hashes.launches == before + 1
+                    assert torch.equal(out[at:at + rows], full[:rows]), (
+                        misaligned, spec, rows, at)
+                    assert (out[:at] == -5).all()
+                    assert (out[at + rows:] == -5).all()
 
 
 @pytest.mark.parametrize("n,L", CARD_SHAPES)
