@@ -27,7 +27,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("validate.cu", "uniform_qc.cu", "nw.cu", "scan.cu",
-           "ragged_qc.cu", "qc_stats.cu", "adapter.cu", "dedup.cu")
+           "ragged_qc.cu", "qc_stats.cu", "adapter.cu", "dedup.cu",
+           "parse.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "libblazeseq_kernels.so"
@@ -78,6 +79,18 @@ _SIGNATURES = {
                             _P),
     # seq, lengths, out, n, n_valid, rows, L, sm_count, stream
     "bs_read_hashes": (_P, _P, _P, _LL, _LL, _LL, _I, _I, _P),
+    # chunk, n, q_lo, q_hi, offset, max_phred, ints, flags, scratch, tiles,
+    # stream
+    "bs_raw_stream_qc": (_P, _LL, _I, _I, _I, _I, _P, _P, _P, _LL, _P),
+    # chunk, n, start, max_count, pos, scratch, tiles, max_blocks, stream
+    "bs_newline_positions": (_P, _LL, _LL, _LL, _P, _P, _LL, _I, _P),
+    # chunk, n, start, max_records, offsets, codes, scratch, tiles,
+    # max_blocks, stream
+    "bs_record_offsets": (_P, _LL, _I, _LL, _P, _P, _P, _LL, _I, _P),
+    # chunk, n, offsets, max_records, max_len, seq, qual, lengths, stream
+    "bs_gather_padded": (_P, _LL, _P, _LL, _I, _P, _P, _P, _P),
+    # counts, rows, tail, tail_len, work, out, max_blocks, stream
+    "bs_count_records": (_P, _LL, _P, _I, _P, _P, _I, _P),
 }
 
 

@@ -11,8 +11,10 @@ and dispatch to csrc/nw.cu's variant kernel beside their plain versions
 `ragged_qc` (XLA code in the reference) gets a hand-written kernel too, and
 `ragged_qc_torch` beside it; so do the padded-batch panels `qc_stats`,
 `adapter_content` and `read_hashes` (`qc_stats_torch`,
-`adapter_content_torch`, `read_hashes_torch`). `use_interpret` is a
-TPU-only knob and is not ported.
+`adapter_content_torch`, `read_hashes_torch`), and the device-parse API
+(csrc/parse.cu: `raw_stream_qc_torch`, `newline_positions_torch`,
+`record_offsets_torch`, `gather_padded_torch`, `count_records_torch`).
+`use_interpret` is a TPU-only knob and is not ported.
 """
 
 from .adapter import (AdapterStats, adapter_content, adapter_content_cpu,
@@ -34,10 +36,12 @@ from .nw import (needleman_wunsch_affine_cpu, needleman_wunsch_cpu,
                  sw_affine_scores, sw_affine_scores_torch, sw_scores,
                  sw_scores_torch)
 from .ragged_qc import RaggedQC, ragged_qc, ragged_qc_torch
-from .raw_stats import RawStreamQC, raw_stream_qc
-from .scan import (count_records_device, gather_padded_device,
-                   newline_positions_device, parse_fastq_device,
-                   record_offsets_device, structural_bitmaps,
+from .raw_stats import RawStreamQC, raw_stream_qc, raw_stream_qc_torch
+from .scan import (count_records_device, count_records_torch,
+                   gather_padded_device, gather_padded_torch,
+                   newline_positions_device, newline_positions_torch,
+                   parse_fastq_device, record_offsets_device,
+                   record_offsets_torch, structural_bitmaps,
                    structural_bitmaps_torch)
 from .stats import (GC_BINS, LEN_BINS, MAX_PHRED, QCAccumulator, QCStats,
                     qc_stats, qc_stats_torch, row_histograms, row_partials,

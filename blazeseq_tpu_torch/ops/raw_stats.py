@@ -1,5 +1,5 @@
 """Raw-stream QC: global statistics straight from FASTQ bytes on the device
-(counterpart of blazeseq_tpu/ops/raw_stats.py; torch ops, no kernel).
+(counterpart of blazeseq_tpu/ops/raw_stats.py, which is XLA code).
 
 Every byte's role follows from its line phase, the number of newlines
 before it mod 4 (0 header, 1 sequence, 2 separator, 3 quality, for a
@@ -11,6 +11,11 @@ Only complete records count: `tail_start` is the offset just past the last
 record's final newline, so the caller re-feeds the bytes from there with the
 next chunk. Counters are int32: feed chunks below 2 GB and accumulate across
 chunks on the host.
+
+`raw_stream_qc` dispatches: CPU tensors run the plain torch version
+`raw_stream_qc_torch`; CUDA tensors run csrc/parse.cu (a count of newlines
+per 16 KiB tile with its prefix, then one pass over the chunk; counted in
+`raw_stream_qc.launches`) or raise.
 """
 
 from __future__ import annotations
@@ -20,7 +25,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import _kernels
 from .common import AT, NEWLINE, PLUS
+from .scan import _chunk_len, _scratch
 
 
 class RawStreamQC(NamedTuple):
@@ -41,11 +48,9 @@ class RawStreamQC(NamedTuple):
         return int((np.arange(len(hist), dtype=np.int64) * hist).sum())
 
 
-def raw_stream_qc(chunk: torch.Tensor, q_lower, q_upper, offset,
-                  max_phred: int = 64) -> RawStreamQC:
-    """chunk: u8[n] starting at a record boundary; q_lower / q_upper /
-    offset: the quality schema's LOWER / UPPER / OFFSET (taken mod 256, as
-    the reference's uint8 casts do). Runs on the chunk's device."""
+def raw_stream_qc_torch(chunk: torch.Tensor, q_lower, q_upper, offset,
+                        max_phred: int = 64) -> RawStreamQC:
+    """Plain torch version of `raw_stream_qc`."""
     dev = chunk.device
     n = chunk.shape[0]
     i32 = dict(dtype=torch.int32, device=dev)
@@ -101,3 +106,46 @@ def raw_stream_qc(chunk: torch.Tensor, q_lower, q_upper, offset,
     return RawStreamQC(reads, bases, base_counts, qual_hist, bad_structure,
                        seq_qual_mismatch, bad_ascii, bad_quality,
                        tail_start.to(torch.int32))
+
+
+def _raw_stream_qc_cuda(chunk, q_lower, q_upper, offset, max_phred):
+    n = _chunk_len("raw_stream_qc", chunk)
+    if not 1 <= max_phred <= 256:
+        raise ValueError("raw_stream_qc: max_phred %d outside [1, 256]"
+                         % max_phred)
+    lib = _kernels.load()
+    dev = chunk.device
+    # reads, bases, tail_start, base_counts[5], qual_hist[max_phred]
+    ints = torch.empty(8 + max_phred, dtype=torch.int32, device=dev)
+    flags = torch.empty(4, dtype=torch.bool, device=dev)
+    # the tiles' newline prefixes, then three counters
+    tiles, scratch = _scratch(chunk, 4)
+    with _kernels.on_device(dev):
+        err = lib.bs_raw_stream_qc(
+            chunk.data_ptr(), n, int(q_lower), int(q_upper), int(offset),
+            max_phred, ints.data_ptr(), flags.data_ptr(), scratch.data_ptr(),
+            tiles, _kernels.stream_ptr(dev))
+    _kernels.check(err, "bs_raw_stream_qc")
+    if n:
+        raw_stream_qc.launches += 1
+    return RawStreamQC(ints[0], ints[1], ints[3:8], ints[8:], flags[0],
+                       flags[1], flags[2], flags[3], ints[2])
+
+
+def raw_stream_qc(chunk: torch.Tensor, q_lower, q_upper, offset,
+                  max_phred: int = 64) -> RawStreamQC:
+    """chunk: u8[n] starting at a record boundary; q_lower / q_upper /
+    offset: the quality schema's LOWER / UPPER / OFFSET (taken mod 256, as
+    the reference's uint8 casts do). CPU tensors run `raw_stream_qc_torch`;
+    CUDA tensors run the kernels (counted in `raw_stream_qc.launches`) or
+    raise."""
+    if chunk.is_cuda:
+        return _raw_stream_qc_cuda(chunk, q_lower, q_upper, offset,
+                                   int(max_phred))
+    if chunk.device.type != "cpu":
+        raise ValueError("raw_stream_qc: unsupported device %s"
+                         % chunk.device)
+    return raw_stream_qc_torch(chunk, q_lower, q_upper, offset, max_phred)
+
+
+raw_stream_qc.launches = 0

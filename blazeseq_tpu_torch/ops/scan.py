@@ -9,15 +9,25 @@ padded batches, with no host byte work:
   run the plain `structural_bitmaps_torch`; CUDA tensors run the
   hand-written kernel in csrc/scan.cu (counted in
   `structural_bitmaps.launches`) or raise. `count_records_device` is its
-  caller.
+  caller: on the card it runs the scan kernel on the chunk's 128-byte
+  rows and csrc/parse.cu's record-count kernel on their counts and the
+  n % 128 bytes past them (`count_records_device.launches`), with no copy
+  of the chunk.
 * `newline_positions_device`, `record_offsets_device`,
-  `gather_padded_device` and `parse_fastq_device`: torch ops on whatever
-  device the chunk lies on.
+  `gather_padded_device`: CPU tensors run the plain torch versions
+  `newline_positions_torch`, `record_offsets_torch` and
+  `gather_padded_torch`; CUDA tensors run the kernels of csrc/parse.cu or
+  raise: the newline compaction (`newline_positions_device.launches`,
+  counted also where `record_offsets_device` runs it), the record pass
+  (`record_offsets_device.launches`) and the padded gather
+  (`gather_padded_device.launches`). `parse_fastq_device` is the last two
+  in turn. The kernels keep no O(N) intermediate: their scratch is one
+  int32 per 16 KiB tile of the chunk.
 
 Shapes are static: callers fix `max_records` per chunk and get the count
-back. Compaction is an inclusive cumsum rank and a scatter into a
-`[max_count + 1]` buffer whose last slot takes every non-hit and every hit
-past `max_count`, so it needs no host sync.
+back. The plain compaction is an inclusive cumsum rank and a scatter into
+a `[max_count + 1]` buffer whose last slot takes every non-hit and every
+hit past `max_count`, so it needs no host sync; so do the kernels.
 """
 
 from __future__ import annotations
@@ -110,11 +120,87 @@ def _pad_lane(chunk: torch.Tensor) -> torch.Tensor:
     return chunk
 
 
+def count_records_torch(chunk: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of `count_records_device`: the padded chunk's
+    bitmaps, their row counts summed."""
+    _, _, _, counts = structural_bitmaps_torch(_pad_lane(chunk))
+    return counts.sum(dtype=torch.int32) // 4
+
+
 def count_records_device(chunk: torch.Tensor) -> torch.Tensor:
     """Complete records (newlines // 4) of a raw chunk, as a 0-d int32
-    tensor on the chunk's device."""
-    _, _, _, counts = structural_bitmaps(_pad_lane(chunk))
-    return counts.sum(dtype=torch.int32) // 4
+    tensor on the chunk's device.
+
+    CPU tensors run `count_records_torch`. CUDA tensors run the scan kernel
+    on the chunk's whole 128-byte rows, then the record-count kernel on
+    their counts and the last n % 128 bytes (counted in
+    `count_records_device.launches`), or raise."""
+    if not chunk.is_cuda:
+        if chunk.device.type != "cpu":
+            raise ValueError("count_records_device: unsupported device %s"
+                             % chunk.device)
+        return count_records_torch(chunk)
+    n = _chunk_len("count_records_device", chunk)
+    lib = _kernels.load()
+    dev = chunk.device
+    body = n // _LANE * _LANE
+    if body:
+        _, _, _, counts = structural_bitmaps(chunk[:body])
+    else:
+        counts = torch.zeros((0, 1), dtype=torch.int32, device=dev)
+    # a sum and a counter of finished blocks, then the count
+    work = torch.empty(3, dtype=torch.int32, device=dev)
+    with _kernels.on_device(dev):
+        err = lib.bs_count_records(
+            counts.data_ptr(), body // _LANE, chunk.data_ptr() + body,
+            n - body, work.data_ptr(), work.data_ptr() + 8,
+            8 * _kernels.sm_count(dev.index), _kernels.stream_ptr(dev))
+    _kernels.check(err, "bs_count_records")
+    count_records_device.launches += 1
+    return work[2]
+
+
+count_records_device.launches = 0
+
+
+# bytes a block of csrc/parse.cu takes (its kTile): the kernels' scratch is
+# one int32 a tile
+PARSE_TILE_BYTES = 16384
+# offsets are int32
+_MAX_BYTES = (1 << 31) - 1
+
+
+def parse_tiles(address: int, n: int) -> int:
+    """Tiles of csrc/parse.cu over a chunk at `address` with n bytes: tiles
+    start at the address rounded down to 16 bytes."""
+    return -(-(address % 16 + n) // PARSE_TILE_BYTES) if n > 0 else 0
+
+
+def _chunk_len(who: str, chunk: torch.Tensor) -> int:
+    """n of a chunk the CUDA path takes: contiguous u8[n], n < 2^31."""
+    if chunk.dim() != 1 or chunk.dtype != torch.uint8:
+        raise ValueError("%s: chunk must be u8[n], got %s %s"
+                         % (who, chunk.dtype, tuple(chunk.shape)))
+    if not chunk.is_contiguous():
+        raise ValueError("%s: chunk must be contiguous" % who)
+    n = chunk.shape[0]
+    if n > _MAX_BYTES:
+        raise ValueError("%s: chunk of %d bytes; offsets are int32" % (who, n))
+    return n
+
+
+def _start(who: str, start) -> int:
+    start = int(start)
+    if not 0 <= start <= _MAX_BYTES:
+        raise ValueError("%s: start %d outside [0, 2^31)" % (who, start))
+    return start
+
+
+def _scratch(chunk: torch.Tensor, extra: int):
+    """(tiles, int32 scratch of tiles + extra) for a parse.cu call."""
+    tiles = parse_tiles(chunk.data_ptr(), chunk.shape[0])
+    return tiles, torch.empty(tiles + extra, dtype=torch.int32,
+                              device=chunk.device)
 
 
 def _compact_positions(mask: torch.Tensor, max_count: int):
@@ -133,28 +219,53 @@ def _compact_positions(mask: torch.Tensor, max_count: int):
     return pos[:max_count], total
 
 
+def newline_positions_torch(chunk: torch.Tensor, max_count: int):
+    """Plain torch version of `newline_positions_device`."""
+    return _compact_positions(chunk == NEWLINE, max_count)
+
+
+def _newline_positions_cuda(chunk, max_count):
+    n = _chunk_len("newline_positions_device", chunk)
+    lib = _kernels.load()
+    dev = chunk.device
+    # the positions, then the uncapped count
+    out = torch.empty(max_count + 1, dtype=torch.int32, device=dev)
+    tiles, scratch = _scratch(chunk, 2)
+    with _kernels.on_device(dev):
+        err = lib.bs_newline_positions(
+            chunk.data_ptr(), n, 0, max_count, out.data_ptr(),
+            scratch.data_ptr(), tiles, 64 * _kernels.sm_count(dev.index),
+            _kernels.stream_ptr(dev))
+    _kernels.check(err, "bs_newline_positions")
+    newline_positions_device.launches += 1
+    return out[:max_count], out[max_count]
+
+
 def newline_positions_device(chunk: torch.Tensor, max_count: int):
     """Positions of '\\n' bytes, compacted to a static-size tensor.
 
     Returns (positions i32[max_count] padded with len(chunk), count i32[];
-    the count is not capped at max_count)."""
-    return _compact_positions(chunk == NEWLINE, max_count)
+    the count is not capped at max_count). CPU tensors run
+    `newline_positions_torch`; CUDA tensors run the compaction kernel
+    (counted in `newline_positions_device.launches`) or raise."""
+    max_count = int(max_count)
+    if max_count < 0:
+        raise ValueError("newline_positions_device: max_count %d < 0"
+                         % max_count)
+    if chunk.is_cuda:
+        return _newline_positions_cuda(chunk, max_count)
+    if chunk.device.type != "cpu":
+        raise ValueError("newline_positions_device: unsupported device %s"
+                         % chunk.device)
+    return newline_positions_torch(chunk, max_count)
 
 
-def record_offsets_device(chunk: torch.Tensor, max_records: int,
-                          start: int = 0):
-    """FASTQ boundary extraction for one chunk. Newlines before `start` are
-    ignored and record 0's header begins at `start`.
+newline_positions_device.launches = 0
 
-    Returns:
-      offsets i32[max_records, 5] (header/seq/sep/qual starts + record end,
-        the reference's RecordOffsets layout; rows past the count hold -1)
-      n_records i32[] complete records found: newlines // 4, NOT capped at
-        max_records
-      codes i32[max_records] structure codes per record (0 OK, 1 ID_NO_AT,
-        2 SEP_NO_PLUS, 3 SEQ_QUAL_LEN_MISMATCH; 1 wins over 2 over 3; 0 past
-        the count)
-    """
+
+def record_offsets_torch(chunk: torch.Tensor, max_records: int,
+                         start: int = 0):
+    """Plain torch version of `record_offsets_device`."""
     n = chunk.shape[0]
     start = int(start)
     mask = chunk == NEWLINE
@@ -185,15 +296,72 @@ def record_offsets_device(chunk: torch.Tensor, max_records: int,
     return offsets, n_rec, codes
 
 
-def gather_padded_device(chunk: torch.Tensor, offsets: torch.Tensor,
-                         max_records: int, max_len: int):
-    """Offsets -> padded seq/qual u8[max_records, max_len] + lengths
-    i32[max_records]. Rows are cut at max_len; the lengths are the true
-    ones, not clamped. Gathers clip into [0, n - 1]."""
-    n = chunk.shape[0]
+def _record_offsets_cuda(chunk, max_records, start):
+    n = _chunk_len("record_offsets_device", chunk)
+    lib = _kernels.load()
+    dev = chunk.device
+    offsets = torch.empty((max_records, 5), dtype=torch.int32, device=dev)
+    # the codes, then the uncapped record count
+    codes = torch.empty(max_records + 1, dtype=torch.int32, device=dev)
+    tiles, scratch = _scratch(chunk, 2)
+    with _kernels.on_device(dev):
+        err = lib.bs_record_offsets(
+            chunk.data_ptr(), n, start, max_records, offsets.data_ptr(),
+            codes.data_ptr(), scratch.data_ptr(), tiles,
+            64 * _kernels.sm_count(dev.index), _kernels.stream_ptr(dev))
+    _kernels.check(err, "bs_record_offsets")
+    # the compaction kernel, then the record pass
+    if n and max_records:
+        newline_positions_device.launches += 1
+    record_offsets_device.launches += 1
+    return offsets, codes[max_records], codes[:max_records]
+
+
+def record_offsets_device(chunk: torch.Tensor, max_records: int,
+                          start: int = 0):
+    """FASTQ boundary extraction for one chunk. Newlines before `start` are
+    ignored and record 0's header begins at `start`.
+
+    Returns:
+      offsets i32[max_records, 5] (header/seq/sep/qual starts + record end,
+        the reference's RecordOffsets layout; rows past the count hold -1)
+      n_records i32[] complete records found: newlines // 4, NOT capped at
+        max_records
+      codes i32[max_records] structure codes per record (0 OK, 1 ID_NO_AT,
+        2 SEP_NO_PLUS, 3 SEQ_QUAL_LEN_MISMATCH; 1 wins over 2 over 3; 0 past
+        the count)
+
+    CPU tensors run `record_offsets_torch`; CUDA tensors run the compaction
+    kernel into the rows, then the record pass (counted in
+    `record_offsets_device.launches`), or raise.
+    """
+    max_records = int(max_records)
+    if max_records < 0:
+        raise ValueError("record_offsets_device: max_records %d < 0"
+                         % max_records)
+    start = _start("record_offsets_device", start)
+    if chunk.is_cuda:
+        return _record_offsets_cuda(chunk, max_records, start)
+    if chunk.device.type != "cpu":
+        raise ValueError("record_offsets_device: unsupported device %s"
+                         % chunk.device)
+    return record_offsets_torch(chunk, max_records, start)
+
+
+record_offsets_device.launches = 0
+
+
+def _check_offsets(offsets, max_records):
     if offsets.shape != (max_records, 5):
         raise ValueError("gather_padded_device: offsets must be [%d, 5], got "
                          "%s" % (max_records, tuple(offsets.shape)))
+
+
+def gather_padded_torch(chunk: torch.Tensor, offsets: torch.Tensor,
+                        max_records: int, max_len: int):
+    """Plain torch version of `gather_padded_device`."""
+    n = chunk.shape[0]
+    _check_offsets(offsets, max_records)
     valid = offsets[:, 0] >= 0
     seq_start = torch.where(valid, offsets[:, 1], 0)
     qual_start = torch.where(valid, offsets[:, 3], 0)
@@ -210,8 +378,58 @@ def gather_padded_device(chunk: torch.Tensor, offsets: torch.Tensor,
     return rows(seq_start), rows(qual_start), lengths
 
 
+def _gather_padded_cuda(chunk, offsets, max_records, max_len):
+    n = _chunk_len("gather_padded_device", chunk)
+    _check_offsets(offsets, max_records)
+    if (offsets.dtype != torch.int32 or not offsets.is_contiguous()
+            or offsets.device != chunk.device):
+        raise ValueError("gather_padded_device: offsets must be a contiguous "
+                         "int32 tensor on the chunk's device")
+    if max_len >= 1 << 24:
+        raise ValueError("gather_padded_device: max_len %d >= 2^24"
+                         % max_len)
+    lib = _kernels.load()
+    dev = chunk.device
+    seq = torch.empty((max_records, max_len), dtype=torch.uint8, device=dev)
+    qual = torch.empty((max_records, max_len), dtype=torch.uint8, device=dev)
+    lengths = torch.empty(max_records, dtype=torch.int32, device=dev)
+    with _kernels.on_device(dev):
+        err = lib.bs_gather_padded(
+            chunk.data_ptr(), n, offsets.data_ptr(), max_records, max_len,
+            seq.data_ptr(), qual.data_ptr(), lengths.data_ptr(),
+            _kernels.stream_ptr(dev))
+    _kernels.check(err, "bs_gather_padded")
+    gather_padded_device.launches += 1
+    return seq, qual, lengths
+
+
+def gather_padded_device(chunk: torch.Tensor, offsets: torch.Tensor,
+                         max_records: int, max_len: int):
+    """Offsets -> padded seq/qual u8[max_records, max_len] + lengths
+    i32[max_records]. Rows are cut at max_len; the lengths are the true
+    ones, not clamped. Gathers clip into [0, n - 1]: a quality line
+    shorter than its sequence reads on into the next bytes. CPU tensors run
+    `gather_padded_torch`; CUDA tensors run the gather kernel (counted in
+    `gather_padded_device.launches`) or raise."""
+    max_records, max_len = int(max_records), int(max_len)
+    if max_records < 0 or max_len < 0:
+        raise ValueError("gather_padded_device: max_records %d, max_len %d"
+                         % (max_records, max_len))
+    if chunk.is_cuda:
+        return _gather_padded_cuda(chunk, offsets, max_records, max_len)
+    if chunk.device.type != "cpu":
+        raise ValueError("gather_padded_device: unsupported device %s"
+                         % chunk.device)
+    return gather_padded_torch(chunk, offsets, max_records, max_len)
+
+
+gather_padded_device.launches = 0
+
+
 def parse_fastq_device(chunk: torch.Tensor, max_records: int, max_len: int):
-    """Raw byte chunk -> padded batch on the chunk's device.
+    """Raw byte chunk -> padded batch on the chunk's device:
+    `record_offsets_device`, then `gather_padded_device` (the plain
+    versions on CPU tensors, the kernels on CUDA tensors).
 
     Returns (seq u8[max_records, max_len], qual u8[max_records, max_len],
              lengths i32[max_records], n_records i32[], codes

@@ -11,12 +11,16 @@ batches, with two score sets; the padded-batch panel kernels qc_stats,
 adapter_content and read_hashes at run_file's 4,096 x 256 batch, qc_stats
 also at 32,768 x 1,024 with the quartile leaf, and on edge batches, with
 qc_stats' and the multi-adapter scan's running totals and FastQC's six
-adapters in one launch), then
+adapters in one launch; the device-parse kernels of csrc/parse.cu on
+DEVICE_PARSE_EDGE_CASES, a 256 MiB ragged chunk at 3,121,343 x 300 and a
+256 MiB uniform one at 150 columns), then
 drives the port's paths, each with the launch counts set to 0 just before
 it and read just after, and with no plain torch version of a host-route
-kernel (ops/nw.py's wavefronts, qc_stats_torch, adapter_content_torch,
-read_hashes_torch) allowed a CUDA tensor, in this process or in the ranks
-it spawns:
+or device-parse kernel (ops/nw.py's wavefronts, qc_stats_torch,
+adapter_content_torch, read_hashes_torch, raw_stream_qc_torch,
+newline_positions_torch, record_offsets_torch, gather_padded_torch,
+count_records_torch) allowed a CUDA tensor, in this process or in the
+ranks it spawns:
 
 * QCModel(device="cuda").run_file_device over a 2 GiB uniform FASTQ file
   and a 1 GiB quality-binned one, each checked panel by panel against an
@@ -41,8 +45,9 @@ it spawns:
   against the numpy twin, and every panel of a 20,000-read prefix against
   the same call on the CPU;
 * the device-parse API (raw_stream_qc, count_records_device,
-  parse_fastq_device) over the 1 GiB ragged FASTQ in 256 MiB chunks,
-  against the host parser and the generator;
+  parse_fastq_device: the scan kernel and every device-parse kernel) over
+  the 1 GiB ragged FASTQ in 256 MiB chunks, against the host parser and
+  the generator;
 * the command line (python -m blazeseq_tpu_torch: stats, stats --device,
   trim in three modes, demux, merge, tiles) in-process on the card over
   the 1M-read file and 250,000 read pairs, against the host twins, and on
@@ -743,6 +748,125 @@ def ragged_edge_case(label, seed):
         buf = bytes(buf)
         n_valid = len(buf)
     return np.frombuffer(buf, np.uint8).copy(), off, n_valid, kw
+
+
+# the device-parse API's edge cases (raw_stream_qc, newline_positions_device,
+# record_offsets_device, gather_padded_device, parse_fastq_device,
+# count_records_device), shared by phase_kernel_device_parse and the CPU
+# tests against the reference: line ends, case, flags in complete records
+# and in the partial tail, structure codes, the gather reading on past a
+# short quality line, the arguments' limits, views off 16-byte alignment,
+# several 16 KiB tiles of csrc/parse.cu, and every chunk length mod 128
+DEVICE_PARSE_EDGE_CASES = (
+    "empty chunk", "fewer than 4 newlines", "no final newline", "CRLF file",
+    "lower-case bases and N", "high bit in a header",
+    "high bit in the partial tail", "quality out of range in the partial tail",
+    "missing '@'", "missing '+'", "quality line shorter than its sequence",
+    "short quality line at the chunk's end", "quality bounds 289/382",
+    "max_phred 42", "count above max_records",
+    "start in the middle of a record", "start at n",
+    "max_len below the read length", "caller-made offsets with -1 rows",
+    "view 1 byte in", "view 3 bytes in", "view 13 bytes in",
+    "3 tiles of records, view 5 bytes in", "2 tiles of newlines only",
+) + tuple("n %% 128 = %d" % r for r in range(128))
+
+
+def device_parse_edge_case(label, seed):
+    """One case of DEVICE_PARSE_EDGE_CASES: a dict with the chunk (data,
+    u8[n]), the bytes to put before it in its storage (off), the quality
+    arguments of raw_stream_qc (q_lower, q_upper, offset, max_phred),
+    max_count, max_records, start (record_offsets_device), max_len, and
+    caller-made offsets for gather_padded_device (None: record_offsets_
+    device's)."""
+    rng = np.random.default_rng([seed, 15, DEVICE_PARSE_EDGE_CASES.index(
+        label)])
+
+    def records(k, lens=(0, 41), ids=(1, 12), **kw):
+        return _ragged_records(rng, rng.integers(*lens, k),
+                               rng.integers(*ids, k), **kw)
+
+    recs = records(24)
+    case = dict(off=0, q_lower=33, q_upper=126, offset=33, max_phred=64,
+                start=0, max_len=48, offsets=None)
+    if label == "empty chunk":
+        buf = b""
+    elif label == "fewer than 4 newlines":
+        buf = b"@r1\nACGT\n+\n"
+    elif label == "no final newline":
+        buf = b"".join(recs)[:-1]
+    elif label == "CRLF file":
+        buf = b"".join(recs).replace(b"\n", b"\r\n")
+    elif label == "lower-case bases and N":
+        recs = [r[:r.index(b"\n") + 1] + rng.choice(np.frombuffer(
+            b"ACGTNacgtn", np.uint8), 30).tobytes() + b"\n+\n"
+            + b"I" * 30 + b"\n" for r in recs]
+        buf = b"".join(recs)
+    elif label == "high bit in a header":
+        recs[2] = recs[2][:1] + b"\xc1" + recs[2][2:]
+        buf = b"".join(recs)
+    elif label.endswith("in the partial tail"):
+        bad = b"@tail\nAC\xc1T\n+\nII" if label.startswith("high") \
+            else b"@tail\nACGT\n+\nI\x10\x7fI"
+        buf = b"".join(recs) + bad
+    elif label == "missing '@'":
+        recs[3] = b"X" + recs[3][1:]
+        buf = b"".join(recs)
+    elif label == "missing '+'":
+        recs[3] = _FAULTS["no '+'"](recs[3], recs[3].index(b"\n") - 1,
+                                    recs[3].index(b"\n+") - recs[3].index(
+                                        b"\n") - 1)
+        buf = b"".join(recs)
+    elif label == "quality line shorter than its sequence":
+        recs[5] = records(1, (20, 41))[0][:-3] + b"\n"
+        buf = b"".join(recs)
+    elif label == "short quality line at the chunk's end":
+        recs[-1] = records(1, (20, 41))[0][:-4] + b"\n"
+        buf = b"".join(recs)
+    elif label == "quality bounds 289/382":
+        recs[4] = records(1, (5, 41))[0][:-2] + b" \n"
+        buf = b"".join(recs)
+        case.update(q_lower=289, q_upper=382)
+    elif label == "max_phred 42":
+        buf = b"".join(records(24, qual_lo=33, qual_hi=110))
+        case.update(max_phred=42)
+    elif label == "count above max_records":
+        buf = b"".join(recs)
+        case.update(max_records=5)
+    elif label == "start in the middle of a record":
+        buf = b"".join(recs)
+        case.update(start=len(b"".join(recs[:3])) + 5)
+    elif label == "start at n":
+        buf = b"".join(recs)
+        case.update(start=len(buf))
+    elif label == "max_len below the read length":
+        buf = b"".join(records(24, (20, 41)))
+        case.update(max_len=20)
+    elif label == "caller-made offsets with -1 rows":
+        buf = b"".join(recs)
+        offs = rng.integers(-3, len(buf) + 4, (40, 5)).astype(np.int32)
+        offs[::3, 0] = -1
+        offs[1::4, 2] = offs[1::4, 1] - 5  # negative lengths
+        case.update(offsets=offs)
+    elif label.startswith("view"):
+        buf = b"".join(recs) + b"@x\nAC"
+        case.update(off=int(label.split()[1]))
+    elif label.startswith("3 tiles"):
+        buf = b"".join(records(800, (0, 60), (1, 40)))[:3 * 16384 - 100]
+        case.update(off=5, max_len=64)
+    elif label.startswith("2 tiles"):
+        buf = b"\n" * (2 * 16384 + 7)
+    else:  # "n % 128 = r": a chunk of 384 + r bytes, views at 0, 1, 3, 13
+        r = int(label.split()[-1])
+        buf = b"".join(records(40))[:384 + r]
+        case.update(off=(0, 1, 3, 13)[r % 4])
+    data = np.frombuffer(buf, np.uint8).copy()
+    max_records = case.get("max_records",
+                           int(np.count_nonzero(data == 10)) // 4 + 3)
+    if case["offsets"] is not None:
+        max_records = len(case["offsets"])
+    case.update(data=data, max_records=max_records,
+                max_count=4 * max_records + 2)
+    return case
 
 
 def write_mates(path1, path2, n, seed):
@@ -2224,6 +2348,177 @@ def phase_kernel_ragged(seed, tmp):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd), notes
 
 
+KERNEL_PARSE_SOURCE = "blazeseq_tpu_torch/csrc/parse.cu"
+# the device-parse kernels: (JSON name, the wrapper's attribute in its
+# module, the reference lines it replaces)
+PARSE_KERNELS = (
+    ("raw_stream_qc", "blazeseq_tpu/ops/raw_stats.py:64-127"),
+    ("newline_positions", "blazeseq_tpu/ops/scan.py:98-135"),
+    ("record_offsets", "blazeseq_tpu/ops/scan.py:138-176"),
+    ("gather_padded", "blazeseq_tpu/ops/scan.py:179-196"),
+    ("count_records", "blazeseq_tpu/ops/scan.py:216-228"),
+)
+
+
+def storage_bytes(*tensors):
+    """Bytes of the distinct storages under the tensors."""
+    seen = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def call_scratch_bytes(fn):
+    """Device memory one fn() call allocates at its peak beyond what was
+    allocated before it and the storages of what it returns."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    return peak - storage_bytes(*out)
+
+
+def device_parse_calls(chunk, max_records, max_len, max_count, start=0,
+                       offsets=None, qc=(33, 126, 33, 64)):
+    """The device-parse functions on one chunk, each as (kernel call,
+    plain call), by PARSE_KERNELS' names. gather_padded takes `offsets`,
+    else the plain record pass's."""
+    import blazeseq_tpu_torch.ops.raw_stats as rs
+    import blazeseq_tpu_torch.ops.scan as sc
+
+    calls = dict(
+        raw_stream_qc=(lambda: rs.raw_stream_qc(chunk, *qc),
+                       lambda: rs.raw_stream_qc_torch(chunk, *qc)),
+        newline_positions=(
+            lambda: sc.newline_positions_device(chunk, max_count),
+            lambda: sc.newline_positions_torch(chunk, max_count)),
+        count_records=(lambda: (sc.count_records_device(chunk),),
+                       lambda: (sc.count_records_torch(chunk),)))
+    if chunk.numel():  # the plain record pass cannot take an empty chunk
+        if offsets is None:
+            offsets = sc.record_offsets_torch(chunk, max_records, start)[0]
+        calls.update(
+            record_offsets=(
+                lambda: sc.record_offsets_device(chunk, max_records, start),
+                lambda: sc.record_offsets_torch(chunk, max_records, start)),
+            gather_padded=(
+                lambda: sc.gather_padded_device(chunk, offsets, max_records,
+                                                max_len),
+                lambda: sc.gather_padded_torch(chunk, offsets, max_records,
+                                               max_len)))
+    return calls, offsets
+
+
+def device_parse_bounds(chunk, calls, offsets, max_records, max_len):
+    """bound() of each device-parse function on this chunk: each reads the
+    chunk once (or, the gather, each in-row byte) and writes its outputs
+    once; at least one operation a byte read."""
+    import torch
+
+    n = chunk.numel()
+    out = {}
+    for name, (kernel, _) in calls.items():
+        outs = storage_bytes(*kernel())
+        if name == "gather_padded":
+            o = offsets.to(torch.int64)
+            lens = torch.where(o[:, 0] >= 0, o[:, 2] - o[:, 1] - 1, 0)
+            read = 2 * int(lens.clamp(0, max_len).sum()) + nbytes(offsets)
+        else:
+            read = n
+        out[name] = bound(read + outs, read)
+    return out
+
+
+def phase_kernel_device_parse(seed, tmp):
+    """The device-parse kernels of csrc/parse.cu (raw_stream_qc, the newline
+    compaction, the record pass, the padded gather, the record count)
+    against their plain versions on the card, every output leaf exact: the
+    cases of DEVICE_PARSE_EDGE_CASES, then a 256 MiB chunk of the ragged
+    corpus's generator at device_parse's shape (3,121,343 rows x 300
+    columns) and a 256 MiB chunk of uniform records at 150 columns (rows of
+    an odd stride for the gather's stores). On the ragged chunk each is
+    timed against its plain version, with its bound and the scratch of
+    each (peak device memory beyond the chunk and the outputs)."""
+    import torch
+
+    err = 0
+    n_cases = 0
+
+    def compare(calls, label):
+        nonlocal err, n_cases
+        for name, (kernel, plain) in calls.items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = max(err, max_abs_diff(got, want, "%s, %s" % (name, label)))
+            n_cases += 1
+
+    for label in DEVICE_PARSE_EDGE_CASES:
+        case = device_parse_edge_case(label, seed)
+        off = case["off"]
+        dev = torch.zeros(len(case["data"]) + off, dtype=torch.uint8,
+                          device="cuda")
+        dev[off:].copy_(torch.from_numpy(case["data"]))
+        offs = case["offsets"]
+        calls, _ = device_parse_calls(
+            dev[off:], case["max_records"], case["max_len"],
+            case["max_count"], case["start"],
+            None if offs is None else torch.from_numpy(offs).cuda(),
+            tuple(case[k] for k in ("q_lower", "q_upper", "offset",
+                                    "max_phred")))
+        compare(calls, label)
+    path = os.path.join(tmp, "parse_chunk.fastq")
+    write_ragged_corpus(path, PARSE_CHUNK, seed + 23)
+    ragged = torch.from_numpy(np.fromfile(path, np.uint8)).cuda()
+    os.unlink(path)
+    rec, _ = _make_block(seed, 10 ** 6 + 1, 0, PARSE_CHUNK // RS, False)
+    uniform = torch.from_numpy(rec.reshape(-1)).cuda()
+    del rec
+    shapes = dict(ragged=(ragged, PARSE_CHUNK // RAGGED_MIN_RECORD + 1,
+                          RAGGED_LEN[1]),
+                  uniform=(uniform, PARSE_CHUNK // RS + 1, READ_LEN))
+    out, notes = {}, {}
+    for label, (c, max_records, max_len) in shapes.items():
+        calls, offsets = device_parse_calls(c, max_records, max_len,
+                                            4 * max_records)
+        compare(calls, "256 MiB %s chunk" % label)
+        if label != "ragged":
+            continue
+        bounds = device_parse_bounds(c, calls, offsets, max_records,
+                                     max_len)
+        for name, (kernel, plain) in calls.items():
+            out[name] = dict(
+                max_abs_err=err, ms=cuda_ms(kernel, inner=5),
+                plain_ms=cuda_ms(plain, inner=1, trials=3), **bounds[name])
+            notes[name] = dict(scratch_bytes=call_scratch_bytes(kernel),
+                               plain_scratch_bytes=call_scratch_bytes(plain))
+        del calls, offsets
+    # a chunk's device-parse calls as the device_parse path makes them
+    import blazeseq_tpu_torch.ops.raw_stats as rs
+    import blazeseq_tpu_torch.ops.scan as sc
+
+    max_records = shapes["ragged"][1]
+    notes["chunk_ms"] = cuda_ms(lambda: (
+        rs.raw_stream_qc(ragged, 33, 126, 33),
+        sc.parse_fastq_device(ragged, max_records, RAGGED_LEN[1])), inner=3)
+    del shapes, ragged, uniform
+    log("device-parse kernels == plain on %d comparisons (%d edge cases, "
+        "two 256 MiB chunks); the ragged chunk: %s; raw_stream_qc + "
+        "parse_fastq_device %.4f ms a chunk" % (
+            n_cases, len(DEVICE_PARSE_EDGE_CASES),
+            "; ".join("%s %.4f ms (plain %.3f, bound %.4f, %s; scratch %d "
+                      "bytes, plain %d)" % (
+                          k, v["ms"], v["plain_ms"], v["bound_ms"],
+                          v["bound_by"], notes[k]["scratch_bytes"],
+                          notes[k]["plain_scratch_bytes"])
+                      for k, v in out.items()), notes["chunk_ms"]))
+    return out, notes
+
+
 def _time_stream_tiers(model):
     """Instrument `model`'s stream tiers for one run: time spent in the
     reader's readinto, and the moment the ragged stream tier starts. Call
@@ -3106,18 +3401,26 @@ def phase_mesh_ranks(seed, files, oracle, keep, ragged, tmp, kernels):
 
 def _no_plain_on_card():
     """Wrap the plain torch versions of the kernels that the host route's
-    steps dispatch to (ops/nw.py's wavefronts, qc_stats_torch,
-    adapter_content_torch and read_hashes_torch) so that a call with a
+    steps and the device-parse API dispatch to (ops/nw.py's wavefronts,
+    qc_stats_torch, adapter_content_torch, read_hashes_torch,
+    raw_stream_qc_torch, newline_positions_torch, record_offsets_torch,
+    gather_padded_torch and count_records_torch) so that a call with a
     CUDA tensor raises; returns a function that unwraps them. The plain
     branches of read_hashes and of _read_hashes_into (the duplication
     sample) both call read_hashes_torch by the module's name, so both are
     covered."""
-    from blazeseq_tpu_torch.ops import adapter, dedup, nw, stats
+    from blazeseq_tpu_torch.ops import (adapter, dedup, nw, raw_stats, scan,
+                                        stats)
 
     saved = [(nw, n) for n in ["nw_scores_torch"] + [
         plain for _, plain, _ in nw.VARIANT_MODES.values()]]
     saved += [(stats, "qc_stats_torch"), (adapter, "adapter_content_torch"),
-              (dedup, "read_hashes_torch")]
+              (dedup, "read_hashes_torch"),
+              (raw_stats, "raw_stream_qc_torch")]
+    saved += [(scan, n) for n in ("newline_positions_torch",
+                                  "record_offsets_torch",
+                                  "gather_padded_torch",
+                                  "count_records_torch")]
     saved = [(mod, n, getattr(mod, n)) for mod, n in saved]
 
     def guard(name, fn):
@@ -3166,7 +3469,12 @@ def _kernel_fns():
     from blazeseq_tpu_torch.ops.dedup import read_hashes
     from blazeseq_tpu_torch.ops.nw import nw_scores, nw_variant_scores
     from blazeseq_tpu_torch.ops.ragged_qc import ragged_qc
-    from blazeseq_tpu_torch.ops.scan import structural_bitmaps
+    from blazeseq_tpu_torch.ops.raw_stats import raw_stream_qc
+    from blazeseq_tpu_torch.ops.scan import (count_records_device,
+                                             gather_padded_device,
+                                             newline_positions_device,
+                                             record_offsets_device,
+                                             structural_bitmaps)
     from blazeseq_tpu_torch.ops.stats import qc_stats
     from blazeseq_tpu_torch.ops.uniform_qc import uniform_qc
     from blazeseq_tpu_torch.ops.validate import validate_decode
@@ -3175,7 +3483,12 @@ def _kernel_fns():
                 nw_scores=nw_scores, nw_variant_scores=nw_variant_scores,
                 structural_bitmaps=structural_bitmaps,
                 ragged_qc=ragged_qc, qc_stats=qc_stats,
-                adapter_content=adapter_content, read_hashes=read_hashes)
+                adapter_content=adapter_content, read_hashes=read_hashes,
+                raw_stream_qc=raw_stream_qc,
+                newline_positions=newline_positions_device,
+                record_offsets=record_offsets_device,
+                gather_padded=gather_padded_device,
+                count_records=count_records_device)
 
 
 def main(argv=None):
@@ -3239,7 +3552,8 @@ def main(argv=None):
           "read_hashes")),
         ("device_parse",
          lambda: phase_device_parse(args.seed, ragged()),
-         ("structural_bitmaps",)),
+         ("structural_bitmaps", "raw_stream_qc", "newline_positions",
+          "record_offsets", "gather_padded", "count_records")),
         ("cli", lambda: phase_cli(*align["corpus"], tmp),
          ("uniform_qc", "validate_decode", "qc_stats")),
         ("mesh(nccl, 1 rank)",
@@ -3256,6 +3570,8 @@ def main(argv=None):
     launches = dict.fromkeys(kernels, 0)
     try:
         kragged, kragged_notes = phase_kernel_ragged(args.seed, tmp)
+        torch.cuda.synchronize()
+        kparse, kparse_notes = phase_kernel_device_parse(args.seed, tmp)
         torch.cuda.synchronize()
         align["corpus"] = make_align_corpus(args.seed, tmp)
         for path_name, fn, needed in paths:
@@ -3284,16 +3600,18 @@ def main(argv=None):
     log("variant kernel timings:", json.dumps(var_times))
     log("ragged kernels: %.4f ms a call;" % kragged["ms"],
         json.dumps(kragged_notes))
+    log("device-parse kernels:", json.dumps(kparse_notes))
     log("end to end:", json.dumps(e2e))
     log("total %.1f s" % (time.perf_counter() - t_start))
-    # no single PyTorch call computes any of the nine functions, so none
-    # has a library time; kernel A has one record per shape of
+    # no single PyTorch call computes any of the fourteen functions, so
+    # none has a library time; kernel A has one record per shape of
     # KERNEL_A_SHAPES. The ragged, the alignment variant and the three
     # padded-batch panel kernels replace XLA code (no Pallas kernel): their
     # `replaces` name the reference's ragged_qc, its five XLA alignment
     # variants, qc_stats, adapter_content and read_hashes. The variant
     # kernel's ms, plain_ms and bound are its five modes' calls together at
-    # the example's shape, each mode's under `modes`
+    # the example's shape, each mode's under `modes`. The device-parse
+    # kernels replace XLA code of the reference's raw_stats.py and scan.py
     print(json.dumps({"kernels": [
         dict(name="uniform_qc", route="cuda", source=KERNEL_B_SOURCE,
              replaces="blazeseq_tpu/ops/fused_qc.py:205",
@@ -3330,6 +3648,9 @@ def main(argv=None):
              replaces="blazeseq_tpu/ops/dedup.py:41-62",
              launches=launches["read_hashes"], library_ms=None,
              **kpanels["read_hashes"]),
+        *(dict(name=name, route="cuda", source=KERNEL_PARSE_SOURCE,
+               replaces=replaces, launches=launches[name], library_ms=None,
+               **kparse[name]) for name, replaces in PARSE_KERNELS),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,15 @@ compare two commits on one card). Shapes:
   256-column window, with the device memory one call allocates beyond the
   chunk (`scratch_bytes`) beside it, and the device time of the call's
   zero fill (in a tree whose ragged step starts with the scan kernel,
-  that kernel's time); a tree without ops/ragged_qc.py skips it.
+  that kernel's time); a tree without ops/ragged_qc.py skips it;
+* the device-parse API on the same 256 MiB ragged chunk at device_parse's
+  shape (3,121,343 rows x 300 columns): raw_stream_qc,
+  newline_positions_device, record_offsets_device, gather_padded_device,
+  parse_fastq_device and count_records_device, each with the device memory
+  one call allocates at its peak beyond the chunk and what it returns
+  (`scratch_bytes`), and raw_stream_qc + parse_fastq_device together as
+  one chunk of the device_parse path (`device_parse_chunk`); in a tree
+  without csrc/parse.cu these are its torch ops.
 
 * the padded-batch panels at `run_file`'s 4,096 x 256 batch
   (chip_smoke.PANEL_SHAPE, inputs from chip_smoke.panel_inputs):
@@ -229,6 +237,7 @@ def _one_tree(tree, seed, ragged_path=False, sweep=False):
     out["run_file_batch_launches"] = _batch_launches(cs, seed)
     out["run_file_batch_launches_6_adapters"] = _batch_launches(
         cs, seed, cs.FASTQC_ADAPTERS)
+    out["device_parse"] = _device_parse(cs, seed)
     if importlib.util.find_spec("blazeseq_tpu_torch.ops.ragged_qc"):
         out["ragged_qc"] = _ragged(cs, seed)
         if ragged_path:
@@ -545,6 +554,44 @@ def _ragged_path(cs, seed, repeats=3):
                              ragged_qc_launches=ragged_qc.launches))
     return dict(runs[0], gbps_runs=[r["gbps"] for r in runs],
                 host_gbps_runs=[r["host_gbps"] for r in runs])
+
+
+def _device_parse(cs, seed):
+    """The device-parse calls on one 256 MiB chunk of the ragged corpus:
+    card-alone ms and scratch bytes of each, the kernels checked equal to
+    their plain versions where the tree has both."""
+    import numpy as np
+    import torch
+
+    from blazeseq_tpu_torch.ops import raw_stats, scan
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ragged.fastq")
+        cs.write_ragged_corpus(path, cs.PARSE_CHUNK, seed + 23)
+        c = torch.from_numpy(np.fromfile(path, np.uint8)).cuda()
+    mr = cs.PARSE_CHUNK // cs.RAGGED_MIN_RECORD + 1
+    ml = cs.RAGGED_LEN[1]
+    offsets = scan.record_offsets_device(c, mr)[0]
+    calls = dict(
+        raw_stream_qc=lambda: raw_stats.raw_stream_qc(c, 33, 126, 33),
+        newline_positions=lambda: scan.newline_positions_device(c, 4 * mr),
+        record_offsets=lambda: scan.record_offsets_device(c, mr),
+        gather_padded=lambda: scan.gather_padded_device(c, offsets, mr, ml),
+        parse_fastq=lambda: scan.parse_fastq_device(c, mr, ml),
+        count_records=lambda: (scan.count_records_device(c),),
+        device_parse_chunk=lambda: (*raw_stats.raw_stream_qc(c, 33, 126, 33),
+                                    *scan.parse_fastq_device(c, mr, ml)))
+    if hasattr(scan, "record_offsets_torch"):
+        _same(calls["raw_stream_qc"](),
+              raw_stats.raw_stream_qc_torch(c, 33, 126, 33), "raw_stream_qc")
+        _same(calls["parse_fastq"](),
+              (*scan.gather_padded_torch(c, offsets, mr, ml),
+               *scan.record_offsets_torch(c, mr)[1:]), "parse_fastq")
+    out = dict(bytes=c.numel(), max_records=mr, max_len=ml)
+    for name, fn in calls.items():
+        out[name] = dict(device_ms=device_ms(fn, inner=3, trials=3),
+                         scratch_bytes=cs.call_scratch_bytes(fn))
+    return out
 
 
 def _ragged(cs, seed):

@@ -80,7 +80,7 @@ def test_sources_compile_together_then_link(fake_nvcc):
 def test_every_kernel_source_is_built_and_bound():
     assert _kernels.SOURCES == ("validate.cu", "uniform_qc.cu", "nw.cu",
                                 "scan.cu", "ragged_qc.cu", "qc_stats.cu",
-                                "adapter.cu", "dedup.cu")
+                                "adapter.cu", "dedup.cu", "parse.cu")
     for name in _kernels.SOURCES:
         assert os.path.exists(os.path.join(_kernels.CSRC, name))
     # the C entry points of each kernel source, each with its argument types
@@ -90,7 +90,10 @@ def test_every_kernel_source_is_built_and_bound():
                "ragged_qc.cu": ("bs_ragged_qc", "bs_ragged_qc_blocks_per_sm"),
                "qc_stats.cu": ("bs_qc_stats",),
                "adapter.cu": ("bs_adapter_contents",),
-               "dedup.cu": ("bs_read_hashes",)}
+               "dedup.cu": ("bs_read_hashes",),
+               "parse.cu": ("bs_raw_stream_qc", "bs_newline_positions",
+                            "bs_record_offsets", "bs_gather_padded",
+                            "bs_count_records")}
     for source, names in entries.items():
         with open(os.path.join(_kernels.CSRC, source)) as f:
             text = f.read()

@@ -5,18 +5,41 @@ Every leaf of RawStreamQC (reads, bases, base_counts, the 64-bin Phred
 histogram, the four flags and tail_start) must equal the reference's on the
 same bytes (np.array_equal), on the reference tests' cases, on flag
 violations, on chunks that start or end mid-record, and on 64 KiB chunks of
-random FASTQ. Cases named *on_card* run the same comparison with the chunk
-on a CUDA card and skip where there is none.
+random FASTQ, and on every case of chip_smoke.py's
+DEVICE_PARSE_EDGE_CASES. CPU tensors reach the plain raw_stream_qc_torch; a
+CUDA path whose kernels cannot load raises. Cases named *on_card* hold the
+kernel against the plain version with the chunk on a CUDA card and skip
+where there is none.
 """
 
 import collections
+import importlib.util
+import os
 
 import numpy as np
 import pytest
 import torch
 
 import blazeseq_tpu as bt
-from blazeseq_tpu_torch.ops.raw_stats import RawStreamQC, raw_stream_qc
+from blazeseq_tpu_torch import _kernels
+from blazeseq_tpu_torch.ops import raw_stats
+from blazeseq_tpu_torch.ops.raw_stats import (RawStreamQC, raw_stream_qc,
+                                              raw_stream_qc_torch)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _load_chip_smoke():
+    """chip_smoke.py (numpy and the standard library at import), for the
+    edge cases of its phase_kernel_device_parse."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CHIP_SMOKE = _load_chip_smoke()
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -29,14 +52,15 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _ref(data, lower=33, upper=126, offset=33):
+def _ref(data, lower=33, upper=126, offset=33, max_phred=64):
     pytest.importorskip("blazeseq_tpu.ops.raw_stats")
     import jax.numpy as jnp
 
     from blazeseq_tpu.ops.raw_stats import raw_stream_qc as ref_qc
 
     return ref_qc(jnp.asarray(np.frombuffer(data, np.uint8)),
-                  jnp.int32(lower), jnp.int32(upper), jnp.int32(offset))
+                  jnp.int32(lower), jnp.int32(upper), jnp.int32(offset),
+                  max_phred=max_phred)
 
 
 def _port(data, lower=33, upper=126, offset=33, device="cpu"):
@@ -164,3 +188,101 @@ def test_random_chunks_on_card_match_cpu(seed):
     buf = _random_chunk(seed)
     for a, b in zip(_port(buf, device="cuda"), _port(buf)):
         assert torch.equal(a.cpu(), b)
+
+
+def _edge(label, device="cpu"):
+    """An edge case's chunk (a view `off` bytes into its storage) and
+    raw_stream_qc's quality arguments."""
+    case = CHIP_SMOKE.device_parse_edge_case(label, 0)
+    off = case["off"]
+    host = np.concatenate([np.zeros(off, np.uint8), case["data"]])
+    chunk = torch.from_numpy(host).to(device)[off:]
+    args = tuple(case[k] for k in ("q_lower", "q_upper", "offset",
+                                   "max_phred"))
+    return case, chunk, args
+
+
+@pytest.mark.parametrize("label", CHIP_SMOKE.DEVICE_PARSE_EDGE_CASES)
+def test_edge_cases_match_reference(label):
+    case, chunk, args = _edge(label)
+    got = raw_stream_qc(chunk, *args)
+    _assert_equal(got, _ref(case["data"].tobytes(), *args))
+    assert got.qual_hist.shape == (case["max_phred"],)
+
+
+def test_edge_case_flags():
+    """The flags the edge cases are built for: a high bit counts anywhere,
+    a bad quality byte only in a complete record."""
+    for label, want in (("high bit in the partial tail", "bad_ascii"),
+                        ("quality out of range in the partial tail", None),
+                        ("missing '@'", "bad_structure"),
+                        ("quality bounds 289/382", "bad_quality"),
+                        ("fewer than 4 newlines", None)):
+        _, chunk, args = _edge(label)
+        got = raw_stream_qc(chunk, *args)
+        for f in ("bad_structure", "seq_qual_mismatch", "bad_ascii",
+                  "bad_quality"):
+            assert bool(getattr(got, f)) == (f == want), (label, f)
+    _, chunk, args = _edge("fewer than 4 newlines")
+    assert int(raw_stream_qc(chunk, *args).tail_start) == 0
+
+
+def test_dispatch_cpu_takes_the_plain_version(monkeypatch):
+    reached = []
+
+    def spy(*a, **k):
+        reached.append(1)
+        return raw_stream_qc_torch(*a, **k)
+
+    monkeypatch.setattr(raw_stats, "raw_stream_qc_torch", spy)
+    before = raw_stream_qc.launches
+    _, chunk, args = _edge("CRLF file")
+    got = raw_stream_qc(chunk, *args)
+    assert reached == [1] and raw_stream_qc.launches == before
+    _assert_equal(got, raw_stream_qc_torch(chunk, *args))
+
+
+class _LooksCuda(torch.Tensor):
+    """A CPU tensor that reports is_cuda, to reach the CUDA dispatch branch
+    without a card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_cuda_dispatch_raises_when_kernels_cannot_load(monkeypatch):
+    def fail():
+        raise RuntimeError("kernel library unavailable (test)")
+
+    def twin_must_not_run(*a, **k):
+        raise AssertionError("plain version reached from the CUDA branch")
+
+    monkeypatch.setattr(_kernels, "load", fail)
+    monkeypatch.setattr(raw_stats, "raw_stream_qc_torch", twin_must_not_run)
+    before = raw_stream_qc.launches
+    chunk = torch.Tensor._make_subclass(_LooksCuda, torch.from_numpy(
+        np.frombuffer(b"@a\nAC\n+\nII\n" * 9, np.uint8).copy()))
+    with pytest.raises(RuntimeError, match="kernel library unavailable"):
+        raw_stream_qc(chunk, 33, 126, 33)
+    assert raw_stream_qc.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        raw_stream_qc(torch.zeros(4, dtype=torch.uint8, device="meta"), 33,
+                      126, 33)
+
+
+@pytest.mark.parametrize("label", CHIP_SMOKE.DEVICE_PARSE_EDGE_CASES)
+def test_edge_cases_kernel_matches_plain_on_card(label):
+    """The kernel against the plain version on the card, every leaf exact,
+    one launch counted (none for an empty chunk, which launches nothing)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    _, chunk, args = _edge(label, "cuda")
+    before = raw_stream_qc.launches
+    got = raw_stream_qc(chunk, *args)
+    want = raw_stream_qc_torch(chunk, *args)
+    torch.cuda.synchronize()
+    assert raw_stream_qc.launches == before + (chunk.numel() > 0)
+    for name, a, b in zip(RawStreamQC._fields, got, want):
+        assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, b), name

@@ -8,9 +8,16 @@ uint32 words, and the row counts must be equal. count_records_device,
 newline_positions_device, record_offsets_device, gather_padded_device and
 parse_fastq_device are compared leaf by leaf (np.array_equal) with the
 reference on the same bytes, including the uncapped record count, `start`,
-structure codes and lengths past max_len. The CUDA kernel is held against
-the plain version on the card; those cases skip where there is no card.
+structure codes and lengths past max_len, and on every case of
+chip_smoke.py's DEVICE_PARSE_EDGE_CASES. CPU tensors reach the plain
+versions (newline_positions_torch, record_offsets_torch,
+gather_padded_torch, count_records_torch); a CUDA path whose kernels cannot
+load raises. The CUDA kernels are held against the plain versions on the
+card, on the same edge cases; those cases skip where there is no card.
 """
+
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -29,6 +36,23 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _load_chip_smoke():
+    """chip_smoke.py (numpy and the standard library at import), for the
+    edge cases of its phase_kernel_device_parse."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CHIP_SMOKE = _load_chip_smoke()
+EDGE_CASES = CHIP_SMOKE.DEVICE_PARSE_EDGE_CASES
 
 
 def _ref():
@@ -351,3 +375,173 @@ def test_parse_fastq_on_card_matches_cpu():
     gpu = scan.parse_fastq_device(_t(data).cuda(), 512, 64)
     for c, g in zip(cpu, gpu):
         assert torch.equal(c, g.cpu())
+
+
+def _edge_chunk(case, device="cpu"):
+    """The case's chunk as a view `off` bytes into its storage."""
+    off = case["off"]
+    host = np.concatenate([np.zeros(off, np.uint8), case["data"]])
+    chunk = torch.from_numpy(host).to(device)[off:]
+    assert chunk.storage_offset() == off
+    return chunk
+
+
+@pytest.mark.parametrize("label", EDGE_CASES)
+def test_edge_cases_match_reference(label):
+    """Every device-parse function of the port against the reference on
+    one edge case, leaf by leaf. The reference cannot take an empty chunk
+    (its compaction indexes the chunk's last block); there the port's
+    positions are all n = 0 and its counts 0."""
+    ref = _ref()
+    import jax.numpy as jnp
+
+    case = CHIP_SMOKE.device_parse_edge_case(label, 0)
+    arr = case["data"]
+    chunk = _edge_chunk(case)
+    mr, ml, mc = case["max_records"], case["max_len"], case["max_count"]
+    assert int(scan.count_records_device(chunk)) \
+        == int(np.count_nonzero(arr == 10)) // 4
+    if not len(arr):
+        pos, count = scan.newline_positions_device(chunk, mc)
+        assert pos.tolist() == [0] * mc and int(count) == 0
+        return
+    _eq(scan.newline_positions_device(chunk, mc),
+        ref.newline_positions_device(arr, max_count=mc))
+    want = ref.record_offsets_device(arr, max_records=mr,
+                                     start=jnp.int32(case["start"]))
+    _eq(scan.record_offsets_device(chunk, mr, case["start"]), want)
+    offsets = want[0] if case["offsets"] is None else case["offsets"]
+    _eq(scan.gather_padded_device(chunk, torch.from_numpy(
+        np.array(offsets)), mr, ml),
+        ref.gather_padded_device(arr, jnp.asarray(offsets), mr, ml))
+    _eq(scan.parse_fastq_device(chunk, mr, ml),
+        ref.parse_fastq_device(arr, max_records=mr, max_len=ml))
+
+
+def test_dispatch_cpu_takes_the_plain_versions(monkeypatch):
+    """CPU tensors reach the plain versions and count no launch."""
+    case = CHIP_SMOKE.device_parse_edge_case("missing '+'", 0)
+    chunk = _edge_chunk(case)
+    mr, ml = case["max_records"], case["max_len"]
+    reached = []
+    for name in ("newline_positions_torch", "record_offsets_torch",
+                 "gather_padded_torch", "count_records_torch"):
+        def spy(*a, _fn=getattr(scan, name), _name=name, **k):
+            reached.append(_name)
+            return _fn(*a, **k)
+        monkeypatch.setattr(scan, name, spy)
+    counters = (scan.newline_positions_device, scan.record_offsets_device,
+                scan.gather_padded_device, scan.count_records_device,
+                scan.structural_bitmaps)
+    before = [f.launches for f in counters]
+    scan.newline_positions_device(chunk, 8)
+    scan.parse_fastq_device(chunk, mr, ml)
+    scan.count_records_device(chunk)
+    assert reached == ["newline_positions_torch", "record_offsets_torch",
+                       "gather_padded_torch", "count_records_torch"]
+    assert [f.launches for f in counters] == before
+
+
+def test_device_parse_cuda_dispatch_raises_when_kernels_cannot_load(
+        monkeypatch):
+    """A CUDA chunk whose kernels cannot load raises from every
+    device-parse function; no plain version runs, no launch is counted."""
+    def fail():
+        raise RuntimeError("kernel library unavailable (test)")
+
+    def twin_must_not_run(*a, **k):
+        raise AssertionError("plain version reached from the CUDA branch")
+
+    monkeypatch.setattr(_kernels, "load", fail)
+    for name in ("newline_positions_torch", "record_offsets_torch",
+                 "gather_padded_torch", "count_records_torch",
+                 "structural_bitmaps_torch", "_compact_positions"):
+        monkeypatch.setattr(scan, name, twin_must_not_run)
+    counters = (scan.newline_positions_device, scan.record_offsets_device,
+                scan.gather_padded_device, scan.count_records_device,
+                scan.structural_bitmaps)
+    before = [f.launches for f in counters]
+    chunk = torch.Tensor._make_subclass(
+        _LooksCuda, _t(b"@r\nACGT\n+\nIIII\n" * 20))
+    offsets = torch.full((4, 5), -1, dtype=torch.int32)
+    for call in (lambda: scan.newline_positions_device(chunk, 16),
+                 lambda: scan.record_offsets_device(chunk, 4),
+                 lambda: scan.gather_padded_device(chunk, offsets, 4, 8),
+                 lambda: scan.parse_fastq_device(chunk, 4, 8),
+                 lambda: scan.count_records_device(chunk)):
+        with pytest.raises(RuntimeError, match="kernel library unavailable"):
+            call()
+    assert [f.launches for f in counters] == before
+
+
+def test_device_parse_refuses_bad_arguments():
+    chunk = _t(b"@r\nAC\n+\nII\n")
+    with pytest.raises(ValueError, match="start"):
+        scan.record_offsets_device(chunk, 4, start=-1)
+    with pytest.raises(ValueError, match="max_count"):
+        scan.newline_positions_device(chunk, -1)
+    with pytest.raises(ValueError, match=r"offsets must be \[4, 5\]"):
+        scan.gather_padded_device(chunk, torch.zeros((3, 5), dtype=torch.int32),
+                                  4, 8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        scan.record_offsets_device(chunk.to("meta"), 4)
+
+
+def test_parse_tiles_match_the_kernel_source():
+    """The wrappers size the kernels' scratch by PARSE_TILE_BYTES, which
+    must be csrc/parse.cu's kTile; tiles start at the address rounded
+    down to 16 bytes."""
+    with open(os.path.join(_kernels.CSRC, "parse.cu")) as f:
+        assert ("constexpr int kTile = %d;" % scan.PARSE_TILE_BYTES
+                in f.read())
+    t = scan.PARSE_TILE_BYTES
+    assert scan.parse_tiles(4096, 0) == 0
+    assert scan.parse_tiles(4096, 1) == 1
+    assert scan.parse_tiles(4096, t) == 1
+    assert scan.parse_tiles(4096 + 15, t - 15) == 1
+    assert scan.parse_tiles(4096 + 15, t - 14) == 2
+    assert scan.parse_tiles(4096 + 3, 3 * t) == 4
+
+
+@pytest.mark.parametrize("label", EDGE_CASES)
+def test_device_parse_kernels_match_plain_on_card(label):
+    """Each device-parse kernel against its plain version on the card on
+    one edge case, every leaf exact, its launches counted. The plain
+    record pass cannot take an empty chunk: there only the compaction and
+    the record count are held."""
+    _needs_card()
+    case = CHIP_SMOKE.device_parse_edge_case(label, 0)
+    chunk = _edge_chunk(case, "cuda")
+    mr, ml, mc = case["max_records"], case["max_len"], case["max_count"]
+    before = scan.newline_positions_device.launches
+    got = scan.newline_positions_device(chunk, mc)
+    assert scan.newline_positions_device.launches == before + 1
+    _eq_card(got, scan.newline_positions_torch(chunk, mc))
+    before = scan.count_records_device.launches
+    _eq_card((scan.count_records_device(chunk),),
+             (scan.count_records_torch(chunk),))
+    assert scan.count_records_device.launches == before + 1
+    if not chunk.numel():
+        return
+    before = scan.record_offsets_device.launches
+    got = scan.record_offsets_device(chunk, mr, case["start"])
+    assert scan.record_offsets_device.launches == before + 1
+    _eq_card(got, scan.record_offsets_torch(chunk, mr, case["start"]))
+    offsets = (got[0] if case["offsets"] is None
+               else torch.from_numpy(case["offsets"]).cuda())
+    before = scan.gather_padded_device.launches
+    got = scan.gather_padded_device(chunk, offsets, mr, ml)
+    assert scan.gather_padded_device.launches == before + 1
+    _eq_card(got, scan.gather_padded_torch(chunk, offsets, mr, ml))
+    _eq_card(scan.parse_fastq_device(chunk, mr, ml),
+             (*scan.gather_padded_torch(
+                 chunk, scan.record_offsets_torch(chunk, mr)[0], mr, ml),
+              *scan.record_offsets_torch(chunk, mr)[1:]))
+
+
+def _eq_card(got, want):
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
