@@ -80,8 +80,8 @@ _SIGNATURES = {
     # seq, lengths, out, n, n_valid, rows, L, sm_count, stream
     "bs_read_hashes": (_P, _P, _P, _LL, _LL, _LL, _I, _I, _P),
     # chunk, n, q_lo, q_hi, offset, max_phred, ints, flags, scratch, tiles,
-    # stream
-    "bs_raw_stream_qc": (_P, _LL, _I, _I, _I, _I, _P, _P, _P, _LL, _P),
+    # sm_count, stream
+    "bs_raw_stream_qc": (_P, _LL, _I, _I, _I, _I, _P, _P, _P, _LL, _I, _P),
     # chunk, n, start, max_count, pos, scratch, tiles, max_blocks, stream
     "bs_newline_positions": (_P, _LL, _LL, _LL, _P, _P, _LL, _I, _P),
     # chunk, n, start, max_records, offsets, codes, scratch, tiles,

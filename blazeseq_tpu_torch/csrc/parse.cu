@@ -3,19 +3,19 @@
 // count of a chunk whose length is not a multiple of 128.
 //
 // Replaces XLA code of the reference (none of it is a Pallas kernel):
-//   raw_qc_kernel        blazeseq_tpu/ops/raw_stats.py:64-127 raw_stream_qc
-//   compact_kernel       blazeseq_tpu/ops/scan.py:98-135 _compact_positions,
-//                        newline_positions_device
+//   raw_qc_kernel,       blazeseq_tpu/ops/raw_stats.py:64-127 raw_stream_qc
+//   raw_tail_kernel
+//   compact_kernel,      blazeseq_tpu/ops/scan.py:98-135 _compact_positions,
+//   pad_kernel           newline_positions_device
 //   records_kernel       blazeseq_tpu/ops/scan.py:138-176
 //                        record_offsets_device (after compact_kernel)
 //   gather_kernel        blazeseq_tpu/ops/scan.py:179-196 gather_padded_device
 //   count_records_kernel blazeseq_tpu/ops/scan.py:216-228
 //                        count_records_device's sum of the scan kernel's row
-//                        counts, with the n % 128 bytes past its rows (the
+//                        counts, with the n % 128 bytes past them (the
 //                        reference pads the chunk with a copy instead)
 // One source for the two reference modules: the QC pass and the compaction
-// both start from the same count of newlines per tile, and share its
-// kernel and the byte tests.
+// rank the chunk's 16 KiB tiles alike and share the byte tests.
 //
 // Bound: device-memory bytes everywhere. raw_stream_qc must read the chunk
 // once (268.4 MB per 256 MiB chunk: 0.080 ms at 3.35 TB/s); the compaction
@@ -34,30 +34,44 @@
 //   that holds a chunk byte lies within the allocation). A block of 256
 //   threads takes a tile of kTile = 16 KiB virtual bytes, 64 a thread (four
 //   16-byte loads, all issued before any is used).
-// * Newline ranks. newline_tiles_kernel counts each tile's newlines (an
-//   exact SWAR byte test, popcount) and the last block to finish turns the
-//   counts into exclusive prefixes in place, the total after them: scratch
-//   of one int32 a tile (64 KiB per 256 MiB). The second kernel of each
-//   call re-reads its tile, takes a block prefix of the threads' counts, and
-//   so knows every newline's global rank. Two reads of the chunk instead of
-//   a look-back: the total must be known before the first byte is judged
-//   (raw_stream_qc counts only bytes before the last complete record's end).
-// * raw_qc_kernel walks its thread's 64 bytes in order with the running
-//   rank: phase = rank & 3, complete = rank < 4 * (total / 4), one byte a
-//   step (taking four bytes inside one line at once, with SWAR base
-//   counts, was slower: the warps' lanes split between the two paths).
-//   Counters in
-//   registers, reduced per warp, per block in shared memory, then one global
-//   atomic per counter per block; the Phred histogram per warp in shared
-//   memory; the flags by __syncthreads_or; the last block to finish sets
-//   seq_qual_mismatch. tail_start is written by the one thread that sees the
-//   newline of rank 4 * (total / 4).
-// * compact_kernel writes each newline at its rank (dropping ranks at or
-//   past max_count): as positions, padded with n past the count; or, for the
-//   record offsets, straight into the [max_records, 5] rows (newline 4k + j
-//   is field j + 1 of row k, and newline 4k + 3 also starts row k + 1), so
-//   no position list is kept. records_kernel then takes a thread a row:
-//   codes from its fields and two byte reads, -1 rows past the count.
+// * Tile ranks in the same read (the QC pass and the compaction). Blocks
+//   take tiles in order from a counter; a tile publishes its newline count
+//   in a 64-bit status word, one warp sums the words of the tiles below it
+//   back to the nearest inclusive one (a decoupled look-back), and the tile
+//   publishes its inclusive count; a block scan of the threads' counts
+//   gives each thread the rank of its first byte. Scratch: 8 bytes a tile
+//   and a few counters (131 KB per 256 MiB).
+// * raw_qc_kernel (a persistent grid) judges a thread's 64 bytes with
+//   64-bit masks that every lane computes alike, with no branch on a
+//   byte's phase: the newline mask m; the phase bits P0 (the exclusive
+//   prefix-XOR of m, XOR bit 0 of the rank) and P1 (the exclusive
+//   prefix-XOR of m & P0, XOR bit 1); sequence bytes P0 & ~P1 & ~m, quality
+//   bytes P0 & P1 & ~m, line starts (m << 1) | (the byte before is '\n').
+//   Line starts of phase 0 or 2 are checked from the thread's copy of its
+//   bytes in shared memory. Each sequence or quality byte then takes one
+//   predicated step: prmt packs the byte and its quality bit into an index
+//   of a 512-word table in shared memory, which names the 8-bit counter to
+//   add one to (A C G T, a never-read byte for other bases, the Phred bin,
+//   or the count of quality bytes out of range, which a slow path bins);
+//   each lane owns its counters in its own bank, so an increment is a
+//   plain load, add and store. A C G T are read back each tile; the Phred
+//   counters are summed into the output every kFlushTiles tiles, before
+//   one can pass 255. raw_stream_qc counts only the bytes before the last
+//   complete record's end, and that end is known only once every tile is
+//   ranked: the pass counts every byte, keeps the structure and quality
+//   flags as the least index that breaks them, and raw_tail_kernel finds
+//   the tile of the (4 * (total / 4))-th newline by binary search over the
+//   inclusive counts, takes back what the bytes past it added, writes
+//   tail_start, and sets the flags that depend on it.
+// * compact_kernel (a block a tile) stages the tile's newline indices in
+//   shared memory at their ranks in the tile and stores them in order:
+//   positions (pad_kernel then fills slots from the count to max_count
+//   with n and writes the count), or, for the record offsets, the fields
+//   of the [max_records, 5] rows that the tile's ranks own (newline 4k + j
+//   is field j + 1 of row k, and newline 4k + 3 also field 0 of row k + 1:
+//   a run of ranks owns a run of the flat rows), so no position list is
+//   kept. records_kernel then takes a thread a row: codes from its fields
+//   and two byte reads, -1 rows past the count.
 // * gather_kernel treats each output as flat bytes in 16-byte words. A
 //   block takes a run of rows whose bytes start 16-byte aligned (a multiple
 //   of 16 / gcd(max_len, 16) rows), stages their starts and lengths in
@@ -108,10 +122,10 @@ __device__ __forceinline__ uint32_t hits(uint32_t x, uint32_t cls) {
 }
 
 // bit b set when byte b of x is '\n': bits 7, 15, 23, 31 of the hits move
-// to bits 21-24 of the product by 2^21 + 2^14 + 2^7 + 1 (no two partial
+// to bits 28-31 of the product by 2^21 + 2^14 + 2^7 + 1 (no two partial
 // products share a bit, so nothing carries)
 __device__ __forceinline__ uint32_t nl_bits(uint32_t x) {
-  return (((hits(x, kNl) >> 7) * 0x204081u) >> 21) & 0xFu;
+  return (hits(x, kNl) * 0x204081u) >> 28;
 }
 
 // the thread's 64 bytes at virtual v0 (a multiple of 64) as 16 pieces;
@@ -182,44 +196,87 @@ __device__ __forceinline__ int block_scan(int v, int* sh, int& total) {
   return r;
 }
 
-// newlines at virtual positions [lo, lead + n) of each tile into base[t];
-// the last block to finish rewrites base[0..tiles) as exclusive prefixes and
-// base[tiles] as the total. done: a counter zeroed by the caller
-__global__ void __launch_bounds__(kThreads)
-    newline_tiles_kernel(Span s, long long lo, int tiles, int* base,
-                         unsigned* done) {
-  __shared__ int sh[kWarps + 1];
-  __shared__ bool last;
-  const int t = blockIdx.x;
-  const long long v0 = (long long)t * kTile + threadIdx.x * kSeg;
-  uint32_t x[16];
-  load_seg(s, v0, x);
-  const int c = __popcll(nl_mask(x) & range_mask(v0, lo, s.lead + s.n));
-  int total;
-  block_scan(c, sh, total);
-  if (threadIdx.x == 0) {
-    base[t] = total;
-    __threadfence();
-    last = atomicAdd(done, 1u) == (unsigned)tiles - 1;
+// ------------------------------------------------------------ tile ranks
+
+// The QC pass and the compaction give each tile its rank (the newlines
+// below it) in the same pass that reads it, by a decoupled look-back:
+// blocks take tiles in order from a counter, so a tile waits only on tiles
+// that running blocks hold. A tile's status word is 0 until the tile is
+// counted, then a flag in the high half and a count in the low: kAgg with
+// the tile's own count, later kIncl with every newline below the tile's
+// end (below 2^31: offsets are int32).
+constexpr unsigned long long kAgg = 1ull << 32;
+constexpr unsigned long long kIncl = 2ull << 32;
+
+// the look-back's scratch, zeroed: a status word a tile, the tile counter,
+// and the count of every newline, which the last tile writes
+struct Ranks {
+  unsigned long long* status;
+  unsigned* claim;
+  int* total;
+};
+
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+// The newlines of tiles 0..t-1, by one warp looking back 32 tiles a step
+// over their status words until a tile with kIncl (spinning on tiles not
+// counted yet: their blocks took them earlier and publish kAgg before they
+// look back themselves).
+__device__ unsigned look_back(const unsigned long long* status, int t,
+                              int lane) {
+  unsigned sum = 0;
+  for (int j = t - 1; j >= 0; j -= 32) {
+    const int i = j - lane;
+    unsigned long long v;
+    unsigned incl, need;
+    while (true) {
+      v = i >= 0 ? load_status(status + i) : kIncl;
+      incl = __ballot_sync(kFull, (v >> 32) == (kIncl >> 32));
+      // the lanes up to the nearest inclusive status must all be ready
+      need = incl ? (incl & (0u - incl)) * 2u - 1u : kFull;
+      if ((__ballot_sync(kFull, (v >> 32) != 0) & need) == need) break;
+      __nanosleep(32);
+    }
+    sum += __reduce_add_sync(kFull, (need >> lane) & 1 ? (unsigned)v : 0u);
+    if (incl) break;
+  }
+  return sum;
+}
+
+// the block's next tile; every thread calls it (s_tile: shared)
+__device__ __forceinline__ int claim_tile(const Ranks& r, int* s_tile) {
+  if (threadIdx.x == 0) *s_tile = (int)atomicAdd(r.claim, 1u);
+  __syncthreads();
+  return *s_tile;
+}
+
+// the newlines below tile t, which holds `count`: warp 0 publishes the
+// count, looks back, then publishes the inclusive count (the last tile also
+// the total); every thread calls it (s_below: shared)
+__device__ unsigned rank_tile(const Ranks& r, int t, int tiles, int count,
+                              unsigned* s_below) {
+  if (threadIdx.x < 32) {
+    unsigned below = 0;
+    if (t > 0) {
+      if (threadIdx.x == 0) atomicExch(r.status + t, kAgg | (unsigned)count);
+      below = look_back(r.status, t, threadIdx.x);
+    }
+    if (threadIdx.x == 0) {
+      atomicExch(r.status + t, kIncl | (below + (unsigned)count));
+      if (t == tiles - 1) *r.total = (int)(below + count);
+      *s_below = below;
+    }
   }
   __syncthreads();
-  if (!last) return;
-  __threadfence();
-  // each thread a run of consecutive tiles: their sum, a block prefix,
-  // then the run rewritten in place
-  const int per = (tiles + kThreads - 1) / kThreads;
-  const int b0 = min((int)threadIdx.x * per, tiles);
-  const int b1 = min(b0 + per, tiles);
-  int sum = 0;
-  for (int i = b0; i < b1; ++i) sum += __ldcg(base + i);
-  int all;
-  int run = block_scan(sum, sh, all);
-  for (int i = b0; i < b1; ++i) {
-    const int ci = __ldcg(base + i);
-    base[i] = run;
-    run += ci;
-  }
-  if (threadIdx.x == 0) base[tiles] = all;
+  return *s_below;
+}
+
+// the newlines up to the end of tile t, once the pass has ranked every tile
+__device__ __forceinline__ int newlines_through(const Ranks& r, int t) {
+  return (int)(unsigned)__ldcg(r.status + t);
 }
 
 // ------------------------------------------------------------ raw QC
@@ -230,78 +287,373 @@ __global__ void __launch_bounds__(kThreads)
 enum { kReads = 0, kBases = 1, kTail = 2, kCounts = 3, kHist = 8 };
 enum { kBadStructure = 0, kMismatch = 1, kBadAscii = 2, kBadQuality = 3 };
 
+// a lane adds at most kSeg to its 8-bit Phred counters a tile: flush them
+// every kFlushTiles tiles (3 * 64 < 256)
+constexpr int kFlushTiles = 3;
+// the QC pass's dynamic shared memory: the byte table, the threads'
+// segments, then each warp's counters (qc_region bytes a warp)
+constexpr int kLutBytes = 512 * 4;
+constexpr int kSegBytes = kThreads * kSeg;
+// A lane's 8-bit counters, as byte offsets from its own byte 4 * lane of
+// its warp's region (so that each lane keeps to its own bank): Phred bin b
+// at ((b >> 2) << 7) | (b & 3), below cls = 1 << wshift; then A C G T of
+// the sequence bytes (cls + 0..3), a byte that every other sequence byte
+// adds to and that is never read (cls + kDummy), and the count of quality
+// bytes outside [q_lo, q_hi] (cls + kBad), which a slow path bins instead
+constexpr int kDummy = 128, kBad = 129;
+
 struct QcParams {
   int q_lo, q_hi, offset;  // each in 0..255
   int bins;                // histogram bins kept: min(max_phred, 256)
   int cap;                 // largest bin: min(max_phred - 1, 255)
+  int wshift;              // a lane's Phred counters span 1 << wshift bytes
 };
+
+__host__ __device__ __forceinline__ int qc_region(int wshift) {
+  return (1 << wshift) + 256;
+}
 
 struct QcOut {
   int* ints;
   uint8_t* flags;
-  int* quals;      // scratch: quality bytes in complete records
-  unsigned* done;  // scratch: blocks finished
 };
 
+// the QC pass's scratch beyond the tile ranks
+struct QcScratch {
+  Ranks r;
+  int* quals;      // quality bytes counted, zeroed
+  int* bad_s;      // least index of a bad line start (0x7f7f7f7f: none)
+  int* bad_q;      // least index of a quality byte out of range (the same)
+  unsigned* done;  // raw_tail_kernel's blocks finished, zeroed
+};
+
+// bit k set when bit k of y or of a bit below it is set an odd number of
+// times: the inclusive prefix-XOR of a 64-bit word
+__device__ __forceinline__ uint64_t prefix_xor(uint64_t y) {
+  y ^= y << 1;
+  y ^= y << 2;
+  y ^= y << 4;
+  y ^= y << 8;
+  y ^= y << 16;
+  y ^= y << 32;
+  return y;
+}
+
+// a thread's 64 bytes into its slots of seg (4 * kThreads 16-byte words in
+// shared memory, conflict-free), for the few bytes that are read by index
+__device__ __forceinline__ void stash(uint4* seg, const uint32_t (&x)[16]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    seg[j * kThreads + threadIdx.x] =
+        make_uint4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+}
+
+// byte k of the thread's stashed 64 bytes
+__device__ __forceinline__ int stashed(const uint4* seg, int k) {
+  return reinterpret_cast<const uint8_t*>(seg + (k >> 4) * kThreads +
+                                          threadIdx.x)[k & 15];
+}
+
+// the line phase of each byte of a segment whose newline mask is m and
+// whose first byte has rank R (newlines before it), as two bit masks: P0 =
+// rank & 1 (the exclusive prefix-XOR of m), P1 = (rank >> 1) & 1 (bit 1 of
+// the count flips at the newlines whose count before them is odd)
+__device__ __forceinline__ void phase_bits(uint64_t m, int R, uint64_t& p0,
+                                           uint64_t& p1) {
+  p0 = prefix_xor(m) ^ m ^ (R & 1 ? ~0ull : 0ull);
+  const uint64_t odd = m & p0;
+  p1 = prefix_xor(odd) ^ odd ^ (R & 2 ? ~0ull : 0ull);
+}
+
+// the position of the d-th set bit of m (1 <= d <= popcount(m)): halve the
+// window while its low half holds fewer than d set bits
+__device__ __forceinline__ int select64(uint64_t m, int d) {
+  int p = 0;
+#pragma unroll
+  for (int w = 32; w; w >>= 1) {
+    const int c = __popcll(m & ((1ull << w) - 1));
+    if (c < d) {
+      d -= c;
+      m >>= w;
+      p += w;
+    }
+  }
+  return p;
+}
+
+// 0x01 in byte b of the result for bit b of the 4-bit nib
+__device__ __forceinline__ uint32_t byte_ones(uint32_t nib) {
+  return (nib * 0x00204081u) & 0x01010101u;
+}
+
+// byte i of a, then byte i of b, then two copies of b's byte i's top bit
+// (prmt's sign mode): with b's bytes 0 or 1, the table index a_i | b_i << 8
+template <int i>
+__device__ __forceinline__ uint32_t byte_and_flag(uint32_t a, uint32_t b) {
+  constexpr uint32_t sel = i | (4 + i) << 4 | (12 + i) << 8 | (12 + i) << 12;
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "n"(sel));
+  return d;
+}
+
+__device__ __forceinline__ int phred_bin(int b, const QcParams& p) {
+  const int q = b < p.offset ? 0 : b - p.offset;
+  return q < p.cap ? q : p.cap;
+}
+
+__device__ __forceinline__ int bin_offset(int bin) {
+  return ((bin >> 2) << 7) | (bin & 3);
+}
+
+// the block's Phred counters summed into out[0..bins) and zeroed; every
+// thread calls it. A warp takes word w of each lane's counters across the
+// warps, four 8-bit counters in two 16-bit halves (at most kFlushTiles *
+// kSeg * kThreads = 49,152 a counter, below 2^16)
+__device__ void flush_hist(uint8_t* hist, int wshift, int bins, int* out) {
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int w = warp; w < 1 << (wshift - 7); w += kWarps) {
+    uint32_t even = 0, odd = 0;
+#pragma unroll
+    for (int g = 0; g < kWarps; ++g) {
+      uint32_t* p = reinterpret_cast<uint32_t*>(hist + g * qc_region(wshift)) +
+                    32 * w + lane;
+      const uint32_t v = *p;
+      *p = 0;
+      even += v & 0x00FF00FFu;
+      odd += (v >> 8) & 0x00FF00FFu;
+    }
+    even = __reduce_add_sync(kFull, even);
+    odd = __reduce_add_sync(kFull, odd);
+    const int bin = 4 * w + lane;  // lanes 0-3: the word's four counters
+    if (lane < 4 && bin < bins) {
+      const uint32_t half = lane & 1 ? odd : even;
+      const int c = (int)((lane & 2 ? half >> 16 : half) & 0xFFFFu);
+      if (c) atomicAdd(out + bin, c);
+    }
+  }
+  __syncthreads();
+}
+
+// One read of the chunk by a persistent grid whose blocks take tiles in
+// order and rank them by look-back. A thread's 64 bytes are judged with
+// 64-bit masks that every lane computes alike: the newline mask m and the
+// phase bits P0, P1 (the newlines before each byte, plus the segment's rank
+// R, mod 4) as prefix-XORs. Then one step a byte, the same for every lane
+// and predicated on the byte being a sequence or quality byte: a 512-word
+// table in shared memory, indexed by the byte and its quality bit, gives
+// the counter it adds one to (A C G T or the never-read byte for a
+// sequence byte, the Phred bin or the out-of-range count for a quality
+// byte), and the lane adds one to that 8-bit counter of its own. The total
+// is not known yet, so every byte counts as complete; raw_tail_kernel
+// takes the partial record back, and the structure and quality flags are
+// kept as the least index that breaks them.
 __global__ void __launch_bounds__(kThreads)
-    raw_qc_kernel(Span s, const int* base, int tiles, QcParams p, QcOut o) {
-  __shared__ int hist[kWarps][kMaxBins];
+    raw_qc_kernel(Span s, int tiles, QcParams p, QcOut o, QcScratch q) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint32_t* lut = reinterpret_cast<uint32_t*>(smem);
+  uint4* seg = reinterpret_cast<uint4*>(smem + kLutBytes);
+  uint8_t* hist = smem + kLutBytes + kSegBytes;
   __shared__ int sums[7];  // bases, A, C, G, T, other, quals
   __shared__ int sh[kWarps + 1];
-  for (int i = threadIdx.x; i < kWarps * kMaxBins; i += kThreads)
-    (&hist[0][0])[i] = 0;
+  __shared__ int s_tile;
+  __shared__ unsigned s_below;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cls = 1 << p.wshift;
+  for (int b = threadIdx.x; b < 256; b += kThreads) {
+    const int u = b & 0xDF;
+    lut[b] = u == 'A' ? cls : u == 'C' ? cls + 1 : u == 'G' ? cls + 2
+           : u == 'T' ? cls + 3 : cls + kDummy;
+    lut[256 + b] = b < p.q_lo || b > p.q_hi ? cls + kBad
+                                             : bin_offset(phred_bin(b, p));
+  }
+  for (int i = threadIdx.x; i < kWarps * qc_region(p.wshift) / 16;
+       i += kThreads)
+    reinterpret_cast<uint4*>(hist)[i] = make_uint4(0, 0, 0, 0);
   if (threadIdx.x < 7) sums[threadIdx.x] = 0;
-
-  const int t = blockIdx.x;
-  const long long v0 = (long long)t * kTile + threadIdx.x * kSeg;
-  uint32_t x[16];
-  load_seg(s, v0, x);
-  const uint64_t valid = range_mask(v0, s.lead, s.lead + s.n);
-  int block_total;
-  const int excl = block_scan(__popcll(nl_mask(x) & valid), sh,
-                              block_total);
-  const int total = __ldg(base + tiles);
-  const int r4 = total & ~3;  // newlines of the complete records
-  int rank = __ldg(base + t) + excl;
-  const long long i0 = v0 - s.lead;  // chunk index of the segment's byte 0
-  // byte 0 of the chunk starts a line; else the byte before the segment
-  // says whether its first byte does
-  bool prev = true;
-  if (i0 > 0 && i0 <= s.n)
-    prev = reinterpret_cast<const uint8_t*>(s.words)[v0 - 1] == '\n';
+  uint8_t* mine = hist + warp * qc_region(p.wshift) + 4 * lane;
+  const uint8_t* bytes = reinterpret_cast<const uint8_t*>(s.words);
 
   int bases = 0, na = 0, nc = 0, ng = 0, nt = 0, quals = 0;
-  bool bad_s = false, bad_q = false;
+  int bad_s = 0x7f7f7f7f, bad_q = 0x7f7f7f7f;
   uint32_t asc = 0;
-  int* wh = hist[threadIdx.x >> 5];
-  if (valid) {
+  int since = 0;  // tiles since the counters' last flush
+  __syncthreads();
+  while (true) {
+    const int t = claim_tile(q.r, &s_tile);
+    if (t >= tiles) break;
+    const long long v0 = (long long)t * kTile + threadIdx.x * kSeg;
+    uint32_t x[16];
+    load_seg(s, v0, x);
+    const uint64_t valid = range_mask(v0, s.lead, s.lead + s.n);
+    const uint64_t m = nl_mask(x) & valid;
+    int count;
+    const int excl = block_scan(__popcll(m), sh, count);
+    const int R = (int)rank_tile(q.r, t, tiles, count, &s_below) + excl;
+    const long long i0 = v0 - s.lead;  // chunk index of the segment's byte 0
+    uint64_t p0, p1;
+    phase_bits(m, R, p0, p1);
+    // sequence and quality bytes, every one counted (raw_tail_kernel takes
+    // back those of the partial record)
+    const uint64_t body = valid & ~m & p0;
+    const uint64_t qual = body & p1;
+    // a line starts at chunk byte 0 and after each newline
+    uint64_t first = 0;
+    if (i0 <= 0)
+      first = 1ull << (-i0);
+    else if (i0 <= s.n)
+      first = bytes[v0 - 1] == '\n';
+    const uint64_t starts = ((m << 1) | first) & valid & ~p0;
+    const uint64_t plus = starts & p1;  // phase 2: '+'; phase 0: '@'
+    if (starts) {
+      // the few line starts from the thread's own copy of its bytes
+      stash(seg, x);
+      for (uint64_t q = starts; q; q &= q - 1) {
+        const int k = __ffsll((long long)q) - 1;
+        const int b = stashed(seg, k);
+        if (b != ((plus >> k) & 1 ? '+' : '@'))
+          bad_s = min(bad_s, (int)(i0 + k));
+      }
+    }
+    if (valid == ~0ull) {
 #pragma unroll
-    for (int k = 0; k < kSeg; ++k) {
-      const uint32_t b = (x[k >> 2] >> (8 * (k & 3))) & 0xFFu;
-      if (!((valid >> k) & 1)) continue;
-      const bool nl = b == '\n';
-      asc |= b;
-      if (rank < r4) {
-        const int ph = rank & 3;
-        if (prev && ((ph == 0 && b != '@') || (ph == 2 && b != '+')))
-          bad_s = true;
-        if (!nl && ph == 1) {
-          const uint32_t u = b & 0xDFu;
-          ++bases;
-          na += u == 'A';
-          nc += u == 'C';
-          ng += u == 'G';
-          nt += u == 'T';
-        } else if (!nl && ph == 3) {
-          ++quals;
-          const int q = (int)b < p.offset ? 0 : (int)b - p.offset;
-          atomicAdd(&wh[q < p.cap ? q : p.cap], 1);
-          bad_q |= ((int)b < p.q_lo) | ((int)b > p.q_hi);
+      for (int j = 0; j < 16; ++j) asc |= x[j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        asc |= x[j] & byte_ones((uint32_t)(valid >> (4 * j)) & 0xFu) * 0xFFu;
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const uint32_t qf = byte_ones((uint32_t)(qual >> (4 * j)) & 0xFu);
+      const uint32_t w = x[j];
+      if ((body >> (4 * j)) & 1) ++mine[lut[byte_and_flag<0>(w, qf)]];
+      if ((body >> (4 * j + 1)) & 1) ++mine[lut[byte_and_flag<1>(w, qf)]];
+      if ((body >> (4 * j + 2)) & 1) ++mine[lut[byte_and_flag<2>(w, qf)]];
+      if ((body >> (4 * j + 3)) & 1) ++mine[lut[byte_and_flag<3>(w, qf)]];
+    }
+    const int nq = __popcll(qual);
+    bases += __popcll(body) - nq;
+    quals += nq;
+    uint32_t* acgt = reinterpret_cast<uint32_t*>(mine + cls);
+    const uint32_t a = *acgt;
+    *acgt = 0;
+    na += a & 0xFF;
+    nc += (a >> 8) & 0xFF;
+    ng += (a >> 16) & 0xFF;
+    nt += a >> 24;
+    if (mine[cls + kBad]) {
+      // quality bytes outside [q_lo, q_hi]: into their bins one by one
+      mine[cls + kBad] = 0;
+      stash(seg, x);
+      for (uint64_t q = qual; q; q &= q - 1) {
+        const int k = __ffsll((long long)q) - 1;
+        const int b = stashed(seg, k);
+        if (b < p.q_lo || b > p.q_hi) {
+          ++mine[bin_offset(phred_bin(b, p))];
+          bad_q = min(bad_q, (int)(i0 + k));
         }
       }
-      prev = nl;
-      if (nl && ++rank == r4) o.ints[kTail] = (int)(i0 + k + 1);
     }
+    if (++since == kFlushTiles) {
+      flush_hist(hist, p.wshift, p.bins, o.ints + kHist);
+      since = 0;
+    }
+  }
+  if (since) flush_hist(hist, p.wshift, p.bins, o.ints + kHist);
+  const int other = bases - na - nc - ng - nt;
+  const int vals[7] = {bases, na, nc, ng, nt, other, quals};
+#pragma unroll
+  for (int j = 0; j < 7; ++j) {
+    const int w = __reduce_add_sync(kFull, vals[j]);
+    if (lane == 0 && w) atomicAdd(&sums[j], w);
+  }
+  const int ws = __reduce_min_sync(kFull, bad_s);
+  const int wq = __reduce_min_sync(kFull, bad_q);
+  if (lane == 0 && ws != 0x7f7f7f7f) atomicMin(q.bad_s, ws);
+  if (lane == 0 && wq != 0x7f7f7f7f) atomicMin(q.bad_q, wq);
+  const bool any_a = __syncthreads_or(asc & 0x80808080u);
+  if (threadIdx.x == 0) {
+    if (sums[0]) atomicAdd(&o.ints[kBases], sums[0]);
+    for (int j = 0; j < 5; ++j)
+      if (sums[1 + j]) atomicAdd(&o.ints[kCounts + j], sums[1 + j]);
+    if (sums[6]) atomicAdd(q.quals, sums[6]);
+    if (any_a) o.flags[kBadAscii] = 1;
+  }
+}
+
+// Takes back what raw_qc_kernel counted of the bytes past the last complete
+// record ([tail_start, n): fewer than 4 newlines, any number of bytes),
+// then sets what depends on tail_start. Each block finds the tile that
+// holds newline r4 by a binary search over the inclusive counts, then the
+// blocks walk the tiles from there.
+__global__ void __launch_bounds__(kThreads)
+    raw_tail_kernel(Span s, int tiles, QcParams p, QcOut o, QcScratch q) {
+  __shared__ uint4 seg[4 * kThreads];
+  __shared__ int hist[kMaxBins];
+  __shared__ int sums[7];  // bases, A, C, G, T, other, quals
+  __shared__ int sh[kWarps + 1];
+  for (int i = threadIdx.x; i < p.bins; i += kThreads) hist[i] = 0;
+  if (threadIdx.x < 7) sums[threadIdx.x] = 0;
+  const int total = __ldcg(q.r.total);
+  const int r4 = total & ~3;
+  int lo = 0;
+  if (r4 > 0) {
+    int hi = tiles - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (newlines_through(q.r, mid) >= r4)
+        hi = mid;
+      else
+        lo = mid + 1;
+    }
+  }
+  __syncthreads();
+  int bases = 0, na = 0, nc = 0, ng = 0, nt = 0, quals = 0;
+  for (int t = lo + blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long v0 = (long long)t * kTile + threadIdx.x * kSeg;
+    uint32_t x[16];
+    load_seg(s, v0, x);
+    const uint64_t valid = range_mask(v0, s.lead, s.lead + s.n);
+    const uint64_t m = nl_mask(x) & valid;
+    int count;
+    const int R = (t > 0 ? newlines_through(q.r, t - 1) : 0) +
+                  block_scan(__popcll(m), sh, count);
+    const long long i0 = v0 - s.lead;
+    // the tail: bytes whose rank is r4 or more, past the r4-th newline
+    uint64_t tail = valid;
+    if (R < r4) {
+      const int d = r4 - R;
+      if (d > __popcll(m)) {
+        tail = 0;
+      } else {
+        const int k = select64(m, d);
+        tail = valid & ~(~0ull >> (63 - k));
+        o.ints[kTail] = (int)(i0 + k + 1);
+      }
+    }
+    uint64_t p0, p1;
+    phase_bits(m, R, p0, p1);
+    const uint64_t body = tail & ~m & p0;
+    const uint64_t qual = body & p1;
+    if (!body) continue;
+    stash(seg, x);
+    for (uint64_t r = body; r; r &= r - 1) {
+      const int k = __ffsll((long long)r) - 1;
+      const int b = stashed(seg, k);
+      if ((qual >> k) & 1) {
+        atomicAdd(&hist[phred_bin(b, p)], 1);
+      } else {
+        const int u = b & 0xDF;
+        na += u == 'A';
+        nc += u == 'C';
+        ng += u == 'G';
+        nt += u == 'T';
+      }
+    }
+    const int nq = __popcll(qual);
+    bases += __popcll(body) - nq;
+    quals += nq;
   }
   const int other = bases - na - nc - ng - nt;
   const int vals[7] = {bases, na, nc, ng, nt, other, quals};
@@ -310,76 +662,109 @@ __global__ void __launch_bounds__(kThreads)
     const int w = __reduce_add_sync(kFull, vals[j]);
     if ((threadIdx.x & 31) == 0 && w) atomicAdd(&sums[j], w);
   }
-  const bool any_s = __syncthreads_or(bad_s);
-  const bool any_q = __syncthreads_or(bad_q);
-  const bool any_a = __syncthreads_or(asc & 0x80u);
-  for (int b = threadIdx.x; b < p.bins; b += kThreads) {
-    int c = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) c += hist[w][b];
-    if (c) atomicAdd(&o.ints[kHist + b], c);
-  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < p.bins; i += kThreads)
+    if (hist[i]) atomicSub(&o.ints[kHist + i], hist[i]);
   if (threadIdx.x == 0) {
-    if (sums[0]) atomicAdd(&o.ints[kBases], sums[0]);
+    if (sums[0]) atomicSub(&o.ints[kBases], sums[0]);
     for (int j = 0; j < 5; ++j)
-      if (sums[1 + j]) atomicAdd(&o.ints[kCounts + j], sums[1 + j]);
-    if (sums[6]) atomicAdd(o.quals, sums[6]);
-    if (any_s) o.flags[kBadStructure] = 1;
-    if (any_q) o.flags[kBadQuality] = 1;
-    if (any_a) o.flags[kBadAscii] = 1;
-    if (t == 0) o.ints[kReads] = total >> 2;
+      if (sums[1 + j]) atomicSub(&o.ints[kCounts + j], sums[1 + j]);
+    if (sums[6]) atomicSub(q.quals, sums[6]);
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0 && atomicAdd(q.done, 1u) == gridDim.x - 1) {
     __threadfence();
-    if (atomicAdd(o.done, 1u) == gridDim.x - 1) {
-      __threadfence();
-      o.flags[kMismatch] = __ldcg(o.ints + kBases) != __ldcg(o.quals);
-    }
+    const int tail = __ldcg(o.ints + kTail);
+    o.ints[kReads] = total >> 2;
+    o.flags[kBadStructure] = __ldcg(q.bad_s) < tail;
+    o.flags[kBadQuality] = __ldcg(q.bad_q) < tail;
+    o.flags[kMismatch] = __ldcg(o.ints + kBases) != __ldcg(q.quals);
   }
 }
 
 // ------------------------------------------------------------ compaction
 
-// each newline at virtual positions [lo, lead + n) written at its rank r
-// (ranks at or past max_count dropped): pos[r] = its index, or, with
-// pos == nullptr, into the [max_records, 5] offset rows. With pos, slots
-// from the count to max_count take n and *count = the count (uncapped).
+// newline ranks a compaction block stages at once (16 KiB)
+constexpr int kStage = 4096;
+
+// ranks [r0, r0 + k) (staged: stage[r - r0] = the index of newline r) into
+// the [max_records, 5] offset rows: newline 4j + f is field f + 1 of row j
+// (its index + 1; field 4, f = 3, its index) and newline 4j + 3 also field
+// 0 of row j + 1. The ranks own the elements [first, last] of the flat rows
+// and no other, so a block writes them in order.
+__device__ void store_rows(const int* stage, long long r0, int k,
+                           long long max_records, int* offsets) {
+  const long long r1 = min(r0 + k, 4 * max_records);
+  if (r0 >= r1) return;
+  const long long rl = r1 - 1;
+  const unsigned e0 = (unsigned)(5 * (r0 >> 2) + (r0 & 3) + 1);
+  const unsigned e1 = (unsigned)min(
+      5 * (rl >> 2) + (rl & 3) + 2 + ((rl & 3) == 3), 5 * max_records);
+  const unsigned q0 = (unsigned)r0;
+  for (unsigned e = e0 + threadIdx.x; e < e1; e += kThreads) {
+    const unsigned row = e / 5u, f = e - 5u * row;
+    const unsigned r = f == 0 ? 4u * row - 1u : 4u * row + f - 1u;
+    offsets[e] = stage[r - q0] + (f == 4 ? 0 : 1);
+  }
+}
+
+// Newlines at virtual positions [lo, lead + n) in order of rank, in one
+// read: a block claims the next tile, counts its newlines (a block scan
+// gives each thread its rank in the tile), publishes the count, takes the
+// count below the tile by look-back, publishes the inclusive count, then
+// stages the tile's positions in shared memory at their ranks and stores
+// them in order: pos[r] = the index for ranks below max_count, or, with
+// pos == nullptr, the offset rows (store_rows).
 __global__ void __launch_bounds__(kThreads)
-    compact_kernel(Span s, long long lo, const int* base, int tiles,
-                   long long max_count, int* pos, int* count, int* offsets,
+    compact_kernel(Span s, long long lo, int tiles, Ranks r,
+                   long long max_count, int* pos, int* offsets,
                    long long max_records) {
+  __shared__ int stage[kStage];
   __shared__ int sh[kWarps + 1];
-  const long long hi = s.lead + s.n;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const long long v0 = (long long)t * kTile + threadIdx.x * kSeg;
-    uint32_t x[16];
-    load_seg(s, v0, x);
-    uint64_t m = nl_mask(x) & range_mask(v0, lo, hi);
-    int block_total;
-    long long r = (long long)__ldg(base + t) +
-                  block_scan(__popcll(m), sh, block_total);
-    const long long i0 = v0 - s.lead;
-    for (; m && r < max_count; m &= m - 1, ++r) {
-      const int i = (int)(i0 + __ffsll((long long)m) - 1);
-      if (pos) {
-        pos[r] = i;
-      } else {
-        const long long k = r >> 2;
-        const int f = (int)(r & 3);
-        if (f < 3) {
-          offsets[5 * k + f + 1] = i + 1;
-        } else {
-          offsets[5 * k + 4] = i;
-          if (k + 1 < max_records) offsets[5 * (k + 1)] = i + 1;
-        }
-      }
+  __shared__ int s_tile;
+  __shared__ unsigned s_below;
+  const int t = claim_tile(r, &s_tile);
+  const long long v0 = (long long)t * kTile + threadIdx.x * kSeg;
+  uint32_t x[16];
+  load_seg(s, v0, x);
+  const uint64_t m = nl_mask(x) & range_mask(v0, lo, s.lead + s.n);
+  const int cnt = __popcll(m);
+  int count;
+  const int excl = block_scan(cnt, sh, count);
+  // the rank of the tile's first newline
+  const long long first = rank_tile(r, t, tiles, count, &s_below);
+  const long long i0 = v0 - s.lead;
+  // rounds of kStage ranks (one, unless the tile holds more newlines)
+  for (int a = 0; a < count; a += kStage) {
+    if (excl < a + kStage && excl + cnt > a) {
+      int rank = excl;
+      for (uint64_t mm = m; mm; mm &= mm - 1, ++rank)
+        if (rank >= a && rank < a + kStage)
+          stage[rank - a] = (int)(i0 + __ffsll((long long)mm) - 1);
     }
+    __syncthreads();
+    const int k = min(kStage, count - a);
+    const long long r0 = first + a;
+    if (pos) {
+      for (int q = threadIdx.x; q < k && r0 + q < max_count; q += kThreads)
+        pos[r0 + q] = stage[q];
+    } else {
+      store_rows(stage, r0, k, max_records, offsets);
+    }
+    __syncthreads();
   }
-  if (pos) {
-    const long long total = __ldg(base + tiles);
-    if (blockIdx.x == 0 && threadIdx.x == 0) *count = (int)total;
-    for (long long j = total + (long long)blockIdx.x * kThreads + threadIdx.x;
-         j < max_count; j += (long long)gridDim.x * kThreads)
-      pos[j] = (int)s.n;
-  }
+}
+
+// pos[count, max_count) = n and pos[max_count] = count, the count read
+// from where the compaction left it
+__global__ void __launch_bounds__(kThreads)
+    pad_kernel(const int* total, long long max_count, int n, int* pos) {
+  const long long count = __ldg(total);
+  if (blockIdx.x == 0 && threadIdx.x == 0) pos[max_count] = (int)count;
+  for (long long j = count + (long long)blockIdx.x * kThreads + threadIdx.x;
+       j < max_count; j += (long long)gridDim.x * kThreads)
+    pos[j] = n;
 }
 
 // ------------------------------------------------------------ records
@@ -390,9 +775,9 @@ __global__ void __launch_bounds__(kThreads)
 // at the separator, else 3 seq and qual lengths differ
 __global__ void __launch_bounds__(kThreads)
     records_kernel(const uint8_t* chunk, long long n, int start,
-                   const int* base, int tiles, long long max_records,
-                   int* offsets, int* codes, int* n_rec) {
-  const int nrec = __ldg(base + tiles) >> 2;
+                   const int* total, long long max_records, int* offsets,
+                   int* codes, int* n_rec) {
+  const int nrec = __ldg(total) >> 2;
   if (blockIdx.x == 0 && threadIdx.x == 0) *n_rec = nrec;
   for (long long k = (long long)blockIdx.x * kThreads + threadIdx.x;
        k < max_records; k += (long long)gridDim.x * kThreads) {
@@ -576,53 +961,71 @@ int grid_for(long long items, long long per_block, int max_blocks) {
   return (int)g;
 }
 
-// the tile counts and their prefixes (scratch: tiles + 1 ints, then the
-// finished-block counter, zeroed here); newlines below chunk index `start`
-// are not counted
-cudaError_t newline_tiles(const Span& s, long long start, int tiles,
-                          int* scratch, cudaStream_t st) {
-  cudaError_t err = cudaMemsetAsync(
-      tiles > 0 ? scratch + tiles + 1 : scratch,
-      0, (tiles > 0 ? 1 : 2) * sizeof(int), st);
-  if (err != cudaSuccess || tiles == 0) return err;
-  newline_tiles_kernel<<<tiles, kThreads, 0, st>>>(
-      s, s.lead + start, tiles, scratch,
-      reinterpret_cast<unsigned*>(scratch + tiles + 1));
-  return cudaGetLastError();
+// the tile ranks' scratch and `extra` ints after it, zeroed
+Ranks ranks_scratch(int* scratch, long long tiles, int extra, cudaStream_t st,
+                    cudaError_t& err) {
+  err = cudaMemsetAsync(scratch, 0, (2 * tiles + 2 + extra) * sizeof(int), st);
+  int* tail = scratch + 2 * tiles;
+  return Ranks{reinterpret_cast<unsigned long long*>(scratch),
+               reinterpret_cast<unsigned*>(tail), tail + 1};
 }
 
 }  // namespace
 
 // raw_stream_qc: ints[8 + max_phred] and flags[4] as in raw_qc_kernel;
-// scratch[tiles + 4]. q_lo, q_hi, offset are taken mod 256. `tiles`, which
-// sized the scratch, must be ceil((chunk mod 16 + n) / kTile) (0 when n is
-// 0), as in every entry point below
+// scratch[2 * tiles + 8]. q_lo, q_hi, offset are taken mod 256. `tiles`,
+// which sized the scratch, must be ceil((chunk mod 16 + n) / kTile) (0
+// when n is 0), as in every entry point below
 extern "C" int bs_raw_stream_qc(const uint8_t* chunk, long long n, int q_lo,
                                 int q_hi, int offset, int max_phred,
                                 int* ints, uint8_t* flags, int* scratch,
-                                long long tiles, void* stream) {
+                                long long tiles, int sm_count, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const Span s = make_span(chunk, n);
-  if (max_phred < 1 || tiles != tiles_of(s) || tiles > 0x7fffffff)
+  if (max_phred < 1 || tiles != tiles_of(s) || tiles > 0x7fffffff ||
+      sm_count < 1)
     return (int)cudaErrorInvalidValue;
   cudaMemsetAsync(ints, 0, (8 + max_phred) * sizeof(int), st);
   cudaMemsetAsync(flags, 0, 4, st);
-  cudaMemsetAsync(scratch + tiles + 2, 0, 2 * sizeof(int), st);
   if (tiles == 0) return (int)cudaGetLastError();
-  cudaError_t err = newline_tiles(s, 0, (int)tiles, scratch, st);
+  cudaError_t err;
+  const Ranks r = ranks_scratch(scratch, tiles, 4, st, err);
   if (err != cudaSuccess) return (int)err;
-  const QcParams p{q_lo & 255, q_hi & 255, offset & 255,
-                   max_phred < kMaxBins ? max_phred : kMaxBins,
-                   max_phred - 1 < 255 ? max_phred - 1 : 255};
-  const QcOut o{ints, flags, scratch + tiles + 2,
-                reinterpret_cast<unsigned*>(scratch + tiles + 3)};
-  raw_qc_kernel<<<(unsigned)tiles, kThreads, 0, st>>>(s, scratch, (int)tiles,
-                                                      p, o);
+  int* more = scratch + 2 * tiles + 2;
+  err = cudaMemsetAsync(more + 1, 0x7f, 2 * sizeof(int), st);
+  if (err != cudaSuccess) return (int)err;
+  const QcScratch q{r, more, more + 1, more + 2,
+                    reinterpret_cast<unsigned*>(more + 3)};
+  // a lane's counters: 4 bins a word, a power of two of words
+  const int bins = max_phred < kMaxBins ? max_phred : kMaxBins;
+  int wshift = 7;
+  while ((4 << (wshift - 7)) < bins) ++wshift;
+  const QcParams p{q_lo & 255, q_hi & 255, offset & 255, bins,
+                   max_phred - 1 < 255 ? max_phred - 1 : 255, wshift};
+  const QcOut o{ints, flags};
+  const int smem = kLutBytes + kSegBytes + kWarps * qc_region(wshift);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(raw_qc_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, raw_qc_kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long grid = per_sm < 1 ? 1 : (long long)per_sm * sm_count;
+  raw_qc_kernel<<<(unsigned)(grid < tiles ? grid : tiles), kThreads, smem,
+                  st>>>(s, (int)tiles, p, o, q);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  raw_tail_kernel<<<(unsigned)(2 * sm_count < tiles ? 2 * sm_count : tiles),
+                    kThreads, 0, st>>>(s, (int)tiles, p, o, q);
   return (int)cudaGetLastError();
 }
 
 // newline positions from index `start` on: pos[max_count] padded with n,
-// then pos[max_count] = the uncapped count; scratch[tiles + 2]
+// then pos[max_count] = the uncapped count; scratch[2 * tiles + 2]
 extern "C" int bs_newline_positions(const uint8_t* chunk, long long n,
                                     long long start, long long max_count,
                                     int* pos, int* scratch, long long tiles,
@@ -631,17 +1034,22 @@ extern "C" int bs_newline_positions(const uint8_t* chunk, long long n,
   const Span s = make_span(chunk, n);
   if (tiles != tiles_of(s) || tiles > 0x7fffffff || start < 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = newline_tiles(s, start, (int)tiles, scratch, st);
+  cudaError_t err;
+  const Ranks r = ranks_scratch(scratch, tiles, 0, st, err);
   if (err != cudaSuccess) return (int)err;
-  const long long items = tiles > max_count / 1024 ? tiles : max_count / 1024;
-  compact_kernel<<<grid_for(items, 1, max_blocks), kThreads, 0, st>>>(
-      s, s.lead + start, scratch, (int)tiles, max_count, pos, pos + max_count,
-      nullptr, 0);
+  if (tiles > 0) {
+    compact_kernel<<<(unsigned)tiles, kThreads, 0, st>>>(
+        s, s.lead + start, (int)tiles, r, max_count, pos, nullptr, 0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  pad_kernel<<<grid_for(max_count, 4 * kThreads, max_blocks), kThreads, 0,
+               st>>>(r.total, max_count, (int)n, pos);
   return (int)cudaGetLastError();
 }
 
 // record_offsets: offsets[max_records, 5], codes[max_records + 1] (the last
-// entry takes the uncapped record count); scratch[tiles + 2]
+// entry takes the uncapped record count); scratch[2 * tiles + 2]
 extern "C" int bs_record_offsets(const uint8_t* chunk, long long n, int start,
                                  long long max_records, int* offsets,
                                  int* codes, int* scratch, long long tiles,
@@ -650,18 +1058,19 @@ extern "C" int bs_record_offsets(const uint8_t* chunk, long long n, int start,
   const Span s = make_span(chunk, n);
   if (tiles != tiles_of(s) || tiles > 0x7fffffff || start < 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = newline_tiles(s, start, (int)tiles, scratch, st);
+  cudaError_t err;
+  const Ranks r = ranks_scratch(scratch, tiles, 0, st, err);
   if (err != cudaSuccess) return (int)err;
-  if (tiles > 0 && max_records > 0) {
-    compact_kernel<<<grid_for(tiles, 1, max_blocks), kThreads, 0, st>>>(
-        s, s.lead + start, scratch, (int)tiles, 4 * max_records, nullptr,
-        nullptr, offsets, max_records);
+  if (tiles > 0) {
+    compact_kernel<<<(unsigned)tiles, kThreads, 0, st>>>(
+        s, s.lead + start, (int)tiles, r, 4 * max_records, nullptr, offsets,
+        max_records);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   records_kernel<<<grid_for(max_records, kThreads, max_blocks), kThreads, 0,
-                   st>>>(chunk, n, start, scratch, (int)tiles, max_records,
-                         offsets, codes, codes + max_records);
+                   st>>>(chunk, n, start, r.total, max_records, offsets,
+                         codes, codes + max_records);
   return (int)cudaGetLastError();
 }
 

@@ -13,9 +13,10 @@ next chunk. Counters are int32: feed chunks below 2 GB and accumulate across
 chunks on the host.
 
 `raw_stream_qc` dispatches: CPU tensors run the plain torch version
-`raw_stream_qc_torch`; CUDA tensors run csrc/parse.cu (a count of newlines
-per 16 KiB tile with its prefix, then one pass over the chunk; counted in
-`raw_stream_qc.launches`) or raise.
+`raw_stream_qc_torch`; CUDA tensors run csrc/parse.cu (one read of the
+chunk, its 16 KiB tiles ranked by a look-back, each thread's 64 bytes
+judged with 64-bit phase masks; then a small pass that takes back the
+trailing partial record; counted in `raw_stream_qc.launches`) or raise.
 """
 
 from __future__ import annotations
@@ -118,13 +119,14 @@ def _raw_stream_qc_cuda(chunk, q_lower, q_upper, offset, max_phred):
     # reads, bases, tail_start, base_counts[5], qual_hist[max_phred]
     ints = torch.empty(8 + max_phred, dtype=torch.int32, device=dev)
     flags = torch.empty(4, dtype=torch.bool, device=dev)
-    # the tiles' newline prefixes, then three counters
-    tiles, scratch = _scratch(chunk, 4)
+    # a 64-bit status word a tile, the tile counter, the newline count,
+    # the quality count, the least bad indices and a finished-block count
+    tiles, scratch = _scratch(chunk, 2, 6)
     with _kernels.on_device(dev):
         err = lib.bs_raw_stream_qc(
             chunk.data_ptr(), n, int(q_lower), int(q_upper), int(offset),
             max_phred, ints.data_ptr(), flags.data_ptr(), scratch.data_ptr(),
-            tiles, _kernels.stream_ptr(dev))
+            tiles, _kernels.sm_count(dev.index), _kernels.stream_ptr(dev))
     _kernels.check(err, "bs_raw_stream_qc")
     if n:
         raw_stream_qc.launches += 1

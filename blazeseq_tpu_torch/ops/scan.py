@@ -21,8 +21,9 @@ padded batches, with no host byte work:
   counted also where `record_offsets_device` runs it), the record pass
   (`record_offsets_device.launches`) and the padded gather
   (`gather_padded_device.launches`). `parse_fastq_device` is the last two
-  in turn. The kernels keep no O(N) intermediate: their scratch is one
-  int32 per 16 KiB tile of the chunk.
+  in turn. The compaction reads the chunk once (a decoupled look-back over
+  the tiles' counts). The kernels keep no O(N) intermediate: their scratch
+  is 8 bytes per 16 KiB tile of the chunk and a few counters.
 
 Shapes are static: callers fix `max_records` per chunk and get the count
 back. The plain compaction is an inclusive cumsum rank and a scatter into
@@ -164,7 +165,7 @@ count_records_device.launches = 0
 
 
 # bytes a block of csrc/parse.cu takes (its kTile): the kernels' scratch is
-# one int32 a tile
+# a 64-bit status word a tile and a few counters
 PARSE_TILE_BYTES = 16384
 # offsets are int32
 _MAX_BYTES = (1 << 31) - 1
@@ -196,10 +197,11 @@ def _start(who: str, start) -> int:
     return start
 
 
-def _scratch(chunk: torch.Tensor, extra: int):
-    """(tiles, int32 scratch of tiles + extra) for a parse.cu call."""
+def _scratch(chunk: torch.Tensor, per_tile: int, extra: int):
+    """(tiles, int32 scratch of per_tile * tiles + extra) for a parse.cu
+    call."""
     tiles = parse_tiles(chunk.data_ptr(), chunk.shape[0])
-    return tiles, torch.empty(tiles + extra, dtype=torch.int32,
+    return tiles, torch.empty(per_tile * tiles + extra, dtype=torch.int32,
                               device=chunk.device)
 
 
@@ -230,7 +232,8 @@ def _newline_positions_cuda(chunk, max_count):
     dev = chunk.device
     # the positions, then the uncapped count
     out = torch.empty(max_count + 1, dtype=torch.int32, device=dev)
-    tiles, scratch = _scratch(chunk, 2)
+    # a 64-bit status word a tile, then the tile counter and the count
+    tiles, scratch = _scratch(chunk, 2, 2)
     with _kernels.on_device(dev):
         err = lib.bs_newline_positions(
             chunk.data_ptr(), n, 0, max_count, out.data_ptr(),
@@ -303,7 +306,7 @@ def _record_offsets_cuda(chunk, max_records, start):
     offsets = torch.empty((max_records, 5), dtype=torch.int32, device=dev)
     # the codes, then the uncapped record count
     codes = torch.empty(max_records + 1, dtype=torch.int32, device=dev)
-    tiles, scratch = _scratch(chunk, 2)
+    tiles, scratch = _scratch(chunk, 2, 2)
     with _kernels.on_device(dev):
         err = lib.bs_record_offsets(
             chunk.data_ptr(), n, start, max_records, offsets.data_ptr(),

@@ -12,8 +12,10 @@ adapter_content and read_hashes at run_file's 4,096 x 256 batch, qc_stats
 also at 32,768 x 1,024 with the quartile leaf, and on edge batches, with
 qc_stats' and the multi-adapter scan's running totals and FastQC's six
 adapters in one launch; the device-parse kernels of csrc/parse.cu on
-DEVICE_PARSE_EDGE_CASES, a 256 MiB ragged chunk at 3,121,343 x 300 and a
-256 MiB uniform one at 150 columns), then
+DEVICE_PARSE_EDGE_CASES, on MANY_TILE_CASES (1,024 tiles and more, at
+three views off 16-byte alignment, 20 runs each, so that the tiles'
+look-back meets contention), a 256 MiB ragged chunk at 3,121,343 x 300
+and a 256 MiB uniform one at 150 columns), then
 drives the port's paths, each with the launch counts set to 0 just before
 it and read just after, and with no plain torch version of a host-route
 or device-parse kernel (ops/nw.py's wavefronts, qc_stats_torch,
@@ -756,7 +758,11 @@ def ragged_edge_case(label, seed):
 # tests against the reference: line ends, case, flags in complete records
 # and in the partial tail, structure codes, the gather reading on past a
 # short quality line, the arguments' limits, views off 16-byte alignment,
-# several 16 KiB tiles of csrc/parse.cu, and every chunk length mod 128
+# several 16 KiB tiles of csrc/parse.cu, every chunk length mod 128, and
+# the places of csrc/parse.cu's 64-bit masks: the last complete record's
+# newline at bits 0, 31, 32 and 63 of a thread's 64 bytes, line starts at a
+# thread's first byte, a quality value counted past the 8-bit counters'
+# reach, and Phred bin 255
 DEVICE_PARSE_EDGE_CASES = (
     "empty chunk", "fewer than 4 newlines", "no final newline", "CRLF file",
     "lower-case bases and N", "high bit in a header",
@@ -768,7 +774,31 @@ DEVICE_PARSE_EDGE_CASES = (
     "max_len below the read length", "caller-made offsets with -1 rows",
     "view 1 byte in", "view 3 bytes in", "view 13 bytes in",
     "3 tiles of records, view 5 bytes in", "2 tiles of newlines only",
+    "last record's newline at bit 0", "last record's newline at bit 31",
+    "last record's newline at bit 32", "last record's newline at bit 63",
+    "'@' and '+' at a thread's first byte",
+    "missing '@' at a thread's first byte",
+    "missing '+' at a thread's first byte",
+    "one quality value over 5 tiles", "max_phred 256 with bytes at 255",
 ) + tuple("n %% 128 = %d" % r for r in range(128))
+
+
+def _widen_id(recs, j, pad):
+    """recs with record j's id `pad` bytes longer."""
+    recs = list(recs)
+    recs[j] = recs[j][:1] + b"x" * pad + recs[j][1:]
+    return recs
+
+
+def _line_at_bit(recs, j, line, bit):
+    """recs with line `line` (0 the header, 2 the separator) of record j
+    (j >= 1) starting at a chunk index equal to `bit` mod 64, by widening
+    the id before it."""
+    start = len(b"".join(recs[:j]))
+    if line == 2:
+        start += recs[j].index(b"\n+\n") + 1
+    k = j if line == 2 else j - 1
+    return _widen_id(recs, k, (bit - start) % 64)
 
 
 def device_parse_edge_case(label, seed):
@@ -855,6 +885,33 @@ def device_parse_edge_case(label, seed):
         case.update(off=5, max_len=64)
     elif label.startswith("2 tiles"):
         buf = b"\n" * (2 * 16384 + 7)
+    elif label.startswith("last record's newline at bit"):
+        # its final newline at that bit of a thread's 64 bytes, then a tail
+        bit = int(label.split()[-1])
+        end = len(b"".join(recs)) - 1
+        buf = b"".join(_widen_id(recs, len(recs) - 1, (bit - end) % 64)) \
+            + b"@t\nAC"
+    elif label.endswith("at a thread's first byte"):
+        # a line that starts at bit 0 of a thread's 64 bytes, after a
+        # newline at the last byte of the thread before
+        recs = _line_at_bit(_line_at_bit(recs, 5, 0, 0), 9, 2, 0)
+        if label.startswith("missing '@'"):
+            recs[5] = b"X" + recs[5][1:]
+        elif label.startswith("missing '+'"):
+            i = recs[9].index(b"\n+\n") + 1
+            recs[9] = recs[9][:i] + b"-" + recs[9][i + 1:]
+        buf = b"".join(recs)
+    elif label == "one quality value over 5 tiles":
+        big = 5 * 16384 + 100
+        buf = b"".join(recs[:3]) + b"@big\n" + _SEQ_LUT[rng.integers(
+            0, 256, big)].tobytes() + b"\n+\n" + b"I" * big + b"\n" \
+            + b"".join(recs[3:6]) + b"@t\nA"
+    elif label == "max_phred 256 with bytes at 255":
+        recs = records(24, qual_lo=11, qual_hi=255)
+        recs[7] = recs[7][:recs[7].index(b"\n+\n") + 3] + b"\xff" * (
+            len(recs[7]) - recs[7].index(b"\n+\n") - 4) + b"\n"
+        buf = b"".join(recs)
+        case.update(q_lower=0, q_upper=255, offset=0, max_phred=256)
     else:  # "n % 128 = r": a chunk of 384 + r bytes, views at 0, 1, 3, 13
         r = int(label.split()[-1])
         buf = b"".join(records(40))[:384 + r]
@@ -867,6 +924,37 @@ def device_parse_edge_case(label, seed):
     case.update(data=data, max_records=max_records,
                 max_count=4 * max_records + 2)
     return case
+
+
+# the device-parse API's card-only cases: 1,024 tiles of csrc/parse.cu and
+# more, so that the compaction's look-back runs under contention, views 0,
+# 1 and 13 bytes past 16-byte alignment, each run MANY_TILE_RUNS times;
+# and a quality line of one value over 8,192 tiles, which a lane of the
+# QC pass's persistent grid meets in more tiles than its 8-bit counters
+# hold without a flush
+MANY_TILE_CASES = ("16 MiB of records", "16 MiB of newlines",
+                   "128 MiB of one quality value")
+MANY_TILE_OFFSETS = (0, 1, 13)
+MANY_TILE_RUNS = 20
+
+
+def device_parse_many_tiles(label, seed):
+    """One case of MANY_TILE_CASES: the chunk (u8[n], numpy)."""
+    rng = np.random.default_rng([seed, 16, MANY_TILE_CASES.index(label)])
+    n = 16 << 20
+    if label == "16 MiB of records":
+        k = n // 300
+        buf = b"".join(_ragged_records(
+            rng, rng.integers(RAGGED_LEN[0], RAGGED_LEN[1] + 1, k),
+            rng.integers(RAGGED_ID[0], RAGGED_ID[1] + 1, k)))[:n]
+        return np.frombuffer(buf, np.uint8).copy()
+    if label == "16 MiB of newlines":
+        return np.full(n + 5, 10, np.uint8)
+    head = np.frombuffer(b"@q\nACGT\n+\n", np.uint8)
+    tail = np.frombuffer(b"\n" + b"".join(_ragged_records(
+        rng, (40, 41), (12, 12))) + b"@t\nA", np.uint8)
+    return np.concatenate([head, np.full(128 << 20, ord("I"), np.uint8),
+                           tail])
 
 
 def write_mates(path1, path2, n, seed):
@@ -2438,7 +2526,9 @@ def phase_kernel_device_parse(seed, tmp):
     """The device-parse kernels of csrc/parse.cu (raw_stream_qc, the newline
     compaction, the record pass, the padded gather, the record count)
     against their plain versions on the card, every output leaf exact: the
-    cases of DEVICE_PARSE_EDGE_CASES, then a 256 MiB chunk of the ragged
+    cases of DEVICE_PARSE_EDGE_CASES, the card-only MANY_TILE_CASES at
+    each of MANY_TILE_OFFSETS, MANY_TILE_RUNS times, then a 256 MiB chunk
+    of the ragged
     corpus's generator at device_parse's shape (3,121,343 rows x 300
     columns) and a 256 MiB chunk of uniform records at 150 columns (rows of
     an odd stride for the gather's stores). On the ragged chunk each is
@@ -2471,6 +2561,25 @@ def phase_kernel_device_parse(seed, tmp):
             tuple(case[k] for k in ("q_lower", "q_upper", "offset",
                                     "max_phred")))
         compare(calls, label)
+    for label in MANY_TILE_CASES:
+        data = device_parse_many_tiles(label, seed)
+        max_records = int(np.count_nonzero(data == 10)) // 4 + 3
+        for off in MANY_TILE_OFFSETS:
+            dev = torch.zeros(len(data) + off, dtype=torch.uint8,
+                              device="cuda")
+            dev[off:].copy_(torch.from_numpy(data))
+            calls, _ = device_parse_calls(dev[off:], max_records, 64,
+                                          4 * max_records + 2)
+            for name, (kernel, plain) in calls.items():
+                want = plain()
+                for _ in range(MANY_TILE_RUNS):
+                    got = kernel()
+                    torch.cuda.synchronize()
+                    err = max(err, max_abs_diff(got, want, "%s, %s, view %d "
+                                                "bytes in" % (name, label,
+                                                              off)))
+                    n_cases += 1
+            del dev, calls
     path = os.path.join(tmp, "parse_chunk.fastq")
     write_ragged_corpus(path, PARSE_CHUNK, seed + 23)
     ragged = torch.from_numpy(np.fromfile(path, np.uint8)).cuda()
@@ -2507,9 +2616,11 @@ def phase_kernel_device_parse(seed, tmp):
         sc.parse_fastq_device(ragged, max_records, RAGGED_LEN[1])), inner=3)
     del shapes, ragged, uniform
     log("device-parse kernels == plain on %d comparisons (%d edge cases, "
-        "two 256 MiB chunks); the ragged chunk: %s; raw_stream_qc + "
-        "parse_fastq_device %.4f ms a chunk" % (
-            n_cases, len(DEVICE_PARSE_EDGE_CASES),
+        "%d card-only cases of 1,024 tiles and more at views 0, 1, 13 bytes "
+        "in, %d runs each, two 256 MiB chunks); the ragged chunk: %s; "
+        "raw_stream_qc + parse_fastq_device %.4f ms a chunk" % (
+            n_cases, len(DEVICE_PARSE_EDGE_CASES), len(MANY_TILE_CASES),
+            MANY_TILE_RUNS,
             "; ".join("%s %.4f ms (plain %.3f, bound %.4f, %s; scratch %d "
                       "bytes, plain %d)" % (
                           k, v["ms"], v["plain_ms"], v["bound_ms"],

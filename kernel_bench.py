@@ -2,6 +2,7 @@
 source tree or several in turn.
 
     python3 kernel_bench.py [--tree DIR ...] [--seed N] [--ragged-path]
+                            [--sweep] [--only device_parse]
 
 Each DIR (default: this script's directory) holds a `blazeseq_tpu_torch`
 package; its kernels are built from its own sources and timed in a fresh
@@ -35,8 +36,10 @@ compare two commits on one card). Shapes:
   parse_fastq_device and count_records_device, each with the device memory
   one call allocates at its peak beyond the chunk and what it returns
   (`scratch_bytes`), and raw_stream_qc + parse_fastq_device together as
-  one chunk of the device_parse path (`device_parse_chunk`); in a tree
-  without csrc/parse.cu these are its torch ops.
+  one chunk of the device_parse path (`device_parse_chunk`); raw_stream_qc,
+  the compaction, the record pass and parse_fastq_device are first checked
+  equal to their plain versions; in a tree without csrc/parse.cu these are
+  its torch ops. `--only device_parse` times this section alone.
 
 * the padded-batch panels at `run_file`'s 4,096 x 256 batch
   (chip_smoke.PANEL_SHAPE, inputs from chip_smoke.panel_inputs):
@@ -147,7 +150,7 @@ def _same(got, want, label):
         raise AssertionError("%s: kernel differs from plain" % label)
 
 
-def _one_tree(tree, seed, ragged_path=False, sweep=False):
+def _one_tree(tree, seed, ragged_path=False, sweep=False, only=None):
     # this script's chip_smoke (inputs and bounds; it imports the package
     # only inside its functions), then the tree's package
     sys.path.insert(0, HERE)
@@ -169,6 +172,9 @@ def _one_tree(tree, seed, ragged_path=False, sweep=False):
     _kernels.load()
     out = dict(tree=os.path.relpath(tree, HERE),
                package=os.path.dirname(nw_ops.__file__))
+    if only == "device_parse":
+        out["device_parse"] = _device_parse(cs, seed)
+        return out
     rng = np.random.default_rng([seed, 3])
     acgt = np.frombuffer(b"ACGT", np.uint8)
     for label, B, Lq, Lr in (("nw_example", 65536, 64, 40),
@@ -584,6 +590,10 @@ def _device_parse(cs, seed):
     if hasattr(scan, "record_offsets_torch"):
         _same(calls["raw_stream_qc"](),
               raw_stats.raw_stream_qc_torch(c, 33, 126, 33), "raw_stream_qc")
+        _same(calls["newline_positions"](),
+              scan.newline_positions_torch(c, 4 * mr), "newline_positions")
+        _same(calls["record_offsets"](), scan.record_offsets_torch(c, mr),
+              "record_offsets")
         _same(calls["parse_fastq"](),
               (*scan.gather_padded_torch(c, offsets, mr, ml),
                *scan.record_offsets_torch(c, mr)[1:]), "parse_fastq")
@@ -645,11 +655,13 @@ def main(argv=None):
     ap.add_argument("--sweep", action="store_true",
                     help="also time qc_stats over rows a block x cluster "
                     "size")
+    ap.add_argument("--only", choices=("device_parse",),
+                    help="time only this section")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.one:
         print(json.dumps(_one_tree(os.path.abspath(args.one), args.seed,
-                                   args.ragged_path, args.sweep)))
+                                   args.ragged_path, args.sweep, args.only)))
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -658,7 +670,8 @@ def main(argv=None):
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--one", tree, "--seed", str(args.seed)]
                              + ["--ragged-path"] * args.ragged_path
-                             + ["--sweep"] * args.sweep,
+                             + ["--sweep"] * args.sweep
+                             + ["--only", args.only] * bool(args.only),
                              capture_output=True, text=True)
         if res.returncode != 0:
             sys.stderr.write(res.stderr)

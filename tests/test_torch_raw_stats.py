@@ -286,3 +286,24 @@ def test_edge_cases_kernel_matches_plain_on_card(label):
     for name, a, b in zip(RawStreamQC._fields, got, want):
         assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape, name
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("off", CHIP_SMOKE.MANY_TILE_OFFSETS)
+@pytest.mark.parametrize("label", CHIP_SMOKE.MANY_TILE_CASES)
+def test_many_tiles_kernel_matches_plain_on_card(label, off):
+    """1,024 tiles and more (the persistent grid's lanes meet the quality
+    line of one value in more tiles than their 8-bit counters hold), at
+    views off 16-byte alignment, run MANY_TILE_RUNS times: every leaf equal
+    to the plain version's each time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    data = CHIP_SMOKE.device_parse_many_tiles(label, 0)
+    dev = torch.zeros(len(data) + off, dtype=torch.uint8, device="cuda")
+    dev[off:].copy_(torch.from_numpy(data))
+    chunk = dev[off:]
+    want = raw_stream_qc_torch(chunk, 33, 126, 33)
+    for _ in range(CHIP_SMOKE.MANY_TILE_RUNS):
+        got = raw_stream_qc(chunk, 33, 126, 33)
+        torch.cuda.synchronize()
+        for name, a, b in zip(RawStreamQC._fields, got, want):
+            assert torch.equal(a, b), name

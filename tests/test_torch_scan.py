@@ -545,3 +545,27 @@ def _eq_card(got, want):
     for g, w in zip(got, want):
         assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("off", CHIP_SMOKE.MANY_TILE_OFFSETS)
+@pytest.mark.parametrize("label", CHIP_SMOKE.MANY_TILE_CASES)
+def test_many_tiles_kernels_match_plain_on_card(label, off):
+    """The compaction (positions and rows, each tile's rank by look-back),
+    the record pass and the record count on 1,024 tiles and more, at views
+    off 16-byte alignment, run MANY_TILE_RUNS times: every leaf equal to
+    the plain version's each time."""
+    _needs_card()
+    data = CHIP_SMOKE.device_parse_many_tiles(label, 0)
+    dev = torch.zeros(len(data) + off, dtype=torch.uint8, device="cuda")
+    dev[off:].copy_(torch.from_numpy(data))
+    chunk = dev[off:]
+    mr = int(np.count_nonzero(data == 10)) // 4 + 3
+    calls = ((lambda: scan.newline_positions_device(chunk, 4 * mr + 2),
+              scan.newline_positions_torch(chunk, 4 * mr + 2)),
+             (lambda: scan.record_offsets_device(chunk, mr),
+              scan.record_offsets_torch(chunk, mr)),
+             (lambda: (scan.count_records_device(chunk),),
+              (scan.count_records_torch(chunk),)))
+    for kernel, want in calls:
+        for _ in range(CHIP_SMOKE.MANY_TILE_RUNS):
+            _eq_card(kernel(), want)
