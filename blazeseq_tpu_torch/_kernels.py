@@ -28,7 +28,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("validate.cu", "uniform_qc.cu", "nw.cu", "scan.cu",
            "ragged_qc.cu", "qc_stats.cu", "adapter.cu", "dedup.cu",
-           "parse.cu")
+           "parse.cu", "merge.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "libblazeseq_kernels.so"
@@ -38,6 +38,7 @@ MAX_SMEM = 232448
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # seq, qual, lengths, codes, phred, n, L, col_offset, q_lo, q_hi,
     # offset, check_ascii, check_quality, group, max_blocks, stream
@@ -91,6 +92,10 @@ _SIGNATURES = {
     "bs_gather_padded": (_P, _LL, _P, _LL, _I, _P, _P, _P, _P),
     # counts, rows, tail, tail_len, work, out, max_blocks, stream
     "bs_count_records": (_P, _LL, _P, _I, _P, _P, _I, _P),
+    # seq1, qual1, len1, seq2, qual2, len2, ints, seq, qual, n, L,
+    # min_overlap, mismatch_penalty, max_mismatch_frac, stream
+    "bs_merge_pairs": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
+                       _F, _P),
 }
 
 

@@ -107,6 +107,9 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.bs_gather_ids.argtypes = [p_u8, p_i64, i64, p_u8, p_i64]
     lib.bs_gather_padded.restype = None
     lib.bs_gather_padded.argtypes = [p_u8, p_i64, i64, i64, p_u8, p_u8, p_i32]
+    lib.bs_pad_rows.restype = None
+    lib.bs_pad_rows.argtypes = [p_u8, p_u8, p_i64, i64, i64, i64, p_u8, p_u8,
+                                p_i32]
     lib.bs_scan_fasta.restype = i64
     lib.bs_scan_fasta.argtypes = [
         p_u8, i64, i64, i32, i64, i32, p_u8, p_i64, p_u8, p_i64,
@@ -910,6 +913,60 @@ def gather_padded(window: np.ndarray, offsets: np.ndarray, width: int,
         qual[i, QL:] = 0
     lengths[:nrec] = true_lens
     return seq, qual, lengths
+
+
+def pad_rows(seq: np.ndarray, qual: np.ndarray, ends: np.ndarray,
+             width: int, rows: int):
+    """Rows of a flat SoA batch (record i is [ends[i-1], ends[i]) of `seq`
+    and `qual`) in the padded layout: (seq u8[rows, width], qual
+    u8[rows, width], lengths i32[rows]). A row holds the first
+    min(len, width) bytes of its record and zeros after them; rows past
+    len(ends) are zero. Lengths are the true ones, not clamped (unlike
+    gather_padded). One memcpy a row in C++; `_pad_rows_np` without the
+    library."""
+    seq = np.ascontiguousarray(seq, np.uint8)
+    qual = np.ascontiguousarray(qual, np.uint8)
+    ends = np.ascontiguousarray(ends, np.int64)
+    n = len(ends)
+    if rows < n or width < 0:
+        raise ValueError("pad_rows: %d rows of width %d for %d records"
+                         % (rows, width, n))
+    if n and (ends[0] < 0 or (np.diff(ends) < 0).any()
+              or ends[-1] > min(len(seq), len(qual))):
+        raise ValueError("pad_rows: record ends must be nondecreasing, "
+                         "within seq and qual")
+    lib = _load()
+    if lib is None:
+        return _pad_rows_np(seq, qual, ends, width, rows)
+    seq2d = np.empty((rows, width), np.uint8)
+    qual2d = np.empty((rows, width), np.uint8)
+    lengths = np.empty(rows, np.int32)
+    lib.bs_pad_rows(_ptr_u8(seq), _ptr_u8(qual), _ptr_i64(ends), n, width,
+                    rows, _ptr_u8(seq2d), _ptr_u8(qual2d),
+                    lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    return seq2d, qual2d, lengths
+
+
+def _pad_rows_np(seq, qual, ends, width, rows):
+    """numpy form of `pad_rows`: row indices by np.repeat, then one flat
+    scatter a column array."""
+    n = len(ends)
+    seq2d = np.zeros((rows, width), np.uint8)
+    qual2d = np.zeros((rows, width), np.uint8)
+    lengths = np.zeros(rows, np.int32)
+    if n:
+        starts = np.concatenate(([0], ends[:-1]))
+        lens = ends - starts
+        keep = np.minimum(lens, width)
+        first = np.cumsum(keep) - keep  # where each row's bytes begin
+        col = np.arange(int(keep.sum()), dtype=np.int64) - np.repeat(first,
+                                                                     keep)
+        src = np.repeat(starts, keep) + col
+        dst = np.repeat(np.arange(n, dtype=np.int64) * width, keep) + col
+        seq2d.reshape(-1)[dst] = seq[src]
+        qual2d.reshape(-1)[dst] = qual[src]
+        lengths[:n] = lens.astype(np.int32)
+    return seq2d, qual2d, lengths
 
 
 def _range_mask(n: int, starts: np.ndarray, ends: np.ndarray) -> np.ndarray:

@@ -1245,6 +1245,34 @@ void bs_gather_padded(const uint8_t* buf, const int64_t* offsets, int64_t nrec,
   }
 }
 
+// Rows of a flat SoA batch into the padded [rows, width] layout
+// (FastqBatch.to_padded): record i spans [ends[i-1], ends[i]) of seq and
+// qual; its row gets the first min(len, width) bytes and zeros after them,
+// rows n..rows-1 are zero. len_out holds the true lengths (not clamped),
+// and 0 on the padding rows. Every byte of the outputs is written.
+void bs_pad_rows(const uint8_t* seq, const uint8_t* qual, const int64_t* ends,
+                 int64_t n, int64_t width, int64_t rows, uint8_t* seq_out,
+                 uint8_t* qual_out, int32_t* len_out) {
+  int64_t start = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t len = ends[i] - start;
+    const int64_t keep = len < width ? len : width;
+    uint8_t* srow = seq_out + i * width;
+    uint8_t* qrow = qual_out + i * width;
+    std::memcpy(srow, seq + start, (size_t)keep);
+    std::memcpy(qrow, qual + start, (size_t)keep);
+    std::memset(srow + keep, 0, (size_t)(width - keep));
+    std::memset(qrow + keep, 0, (size_t)(width - keep));
+    len_out[i] = (int32_t)len;
+    start = ends[i];
+  }
+  if (rows > n) {
+    std::memset(seq_out + n * width, 0, (size_t)((rows - n) * width));
+    std::memset(qual_out + n * width, 0, (size_t)((rows - n) * width));
+    std::memset(len_out + n, 0, (size_t)(rows - n) * sizeof(int32_t));
+  }
+}
+
 // Count reads and bases in a window without materializing anything
 // (views-mode equivalent: reference benchmark runners print `records base_pairs`,
 // benchmark/fastq-parser/run_blazeseq.mojo:21-60).

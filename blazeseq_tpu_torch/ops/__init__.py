@@ -13,7 +13,8 @@ and dispatch to csrc/nw.cu's variant kernel beside their plain versions
 `adapter_content` and `read_hashes` (`qc_stats_torch`,
 `adapter_content_torch`, `read_hashes_torch`), and the device-parse API
 (csrc/parse.cu: `raw_stream_qc_torch`, `newline_positions_torch`,
-`record_offsets_torch`, `gather_padded_torch`, `count_records_torch`).
+`record_offsets_torch`, `gather_padded_torch`, `count_records_torch`) and
+`merge_pairs` (csrc/merge.cu; `merge_pairs_torch`).
 `use_interpret` is a TPU-only knob and is not ported.
 """
 
@@ -25,7 +26,8 @@ from .dedup import (duplication_levels, overrepresented_sequences,
 from .demux import (demultiplex_counts, demultiplex_to_writers, demux_assign,
                     demux_assign_host)
 from .kmer import kmer_counts, kmer_counts_cpu
-from .merge import MergeResult, merge_pairs, merge_pairs_host
+from .merge import (MergeResult, merge_pairs, merge_pairs_host,
+                    merge_pairs_torch)
 from .nw import (needleman_wunsch_affine_cpu, needleman_wunsch_cpu,
                  nw_affine_scores, nw_affine_scores_torch, nw_scores,
                  nw_scores_torch, nw_semiglobal_affine_scores,

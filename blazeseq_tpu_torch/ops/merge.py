@@ -1,5 +1,5 @@
 """Paired-end overlap merging, PEAR-style (counterpart of
-blazeseq_tpu/ops/merge.py; torch ops, no kernel).
+blazeseq_tpu/ops/merge.py).
 
 For each (R1, R2) pair: reverse-complement R2, score every overlap length o
 (the suffix of R1 against the prefix of rc(R2)) as
@@ -8,9 +8,13 @@ o >= min_overlap and a mismatch fraction <= max_mismatch_frac. Ties keep
 the smallest o. Merged reads take the higher-quality base (and its
 quality) at overlap mismatches.
 
-R1 is right-aligned once (a row gather); a loop over o compares R1's last o
-columns with rc(R2)'s first o, about ten launches per o. O(n L) memory,
-O(n L^2) compute: an analysis op, not an ingest-path op.
+`merge_pairs` dispatches on the tensors' device: CUDA tensors run the
+hand-written kernel in csrc/merge.cu (one launch a batch, counted in
+`merge_pairs.launches`) or the call raises; CPU tensors run the plain torch
+version `merge_pairs_torch`, which right-aligns R1 once (a row gather) and
+loops over o, comparing R1's last o columns with rc(R2)'s first o, about a
+dozen launches per o. O(n L) memory, O(n L^2) compute: an analysis op, not
+an ingest-path op.
 
 Host twin: `merge_pairs_host` (pure Python).
 """
@@ -21,6 +25,9 @@ from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from .. import _kernels
+from .common import check_cuda_batch
 
 _COMP = np.full(256, ord("N"), dtype=np.uint8)
 for _a, _b in zip(b"ACGTacgtN", b"TGCATGCAN"):
@@ -71,12 +78,10 @@ def _score_overlaps(r1_right, rc2, len1, len2, min_overlap: int,
     return best_s, best_o, best_m
 
 
-def merge_pairs(seq1, qual1, len1, seq2, qual2, len2,
-                min_overlap: int = 10, mismatch_penalty: int = 1,
-                max_mismatch_frac: float = 0.25) -> MergeResult:
-    """Merge padded read pairs on their device. seq2/qual2 are as sequenced
-    (this function reverse-complements them). All [n, L] u8 tensors;
-    lengths i32[n]."""
+def merge_pairs_torch(seq1, qual1, len1, seq2, qual2, len2,
+                      min_overlap: int = 10, mismatch_penalty: int = 1,
+                      max_mismatch_frac: float = 0.25) -> MergeResult:
+    """Plain torch version of `merge_pairs`."""
     n, L = seq1.shape
     dev = seq1.device
     len1 = len1.to(torch.int32)
@@ -117,6 +122,59 @@ def merge_pairs(seq1, qual1, len1, seq2, qual2, len2,
     return MergeResult(o, merged_len, torch.where(ok, score, 0), mism,
                        torch.where(valid, seq_m, 0).to(torch.uint8),
                        torch.where(valid, qual_m, 0).to(torch.uint8))
+
+
+def _merge_pairs_cuda(seq1, qual1, len1, seq2, qual2, len2, min_overlap,
+                      mismatch_penalty, max_mismatch_frac) -> MergeResult:
+    """One launch of csrc/merge.cu; every output comes from it."""
+    len1 = len1.to(torch.int32)
+    len2 = len2.to(torch.int32)
+    check_cuda_batch("merge_pairs", [("seq1", seq1), ("qual1", qual1),
+                                     ("seq2", seq2), ("qual2", qual2)],
+                     [("len1", len1), ("len2", len2)])
+    if not -(1 << 31) <= mismatch_penalty < (1 << 31):
+        raise ValueError("merge_pairs: mismatch_penalty %d is not an int32"
+                         % mismatch_penalty)
+    n, L = seq1.shape
+    dev = seq1.device
+    ints = torch.empty((4, n), dtype=torch.int32, device=dev)
+    seq = torch.empty((n, 2 * L), dtype=torch.uint8, device=dev)
+    qual = torch.empty((n, 2 * L), dtype=torch.uint8, device=dev)
+    if n:
+        # overlaps run from max(min_overlap, 1) to L: any bound past L is L + 1
+        lo = min(max(int(min_overlap), 1), L + 1)
+        lib = _kernels.load()
+        with _kernels.on_device(dev):
+            err = lib.bs_merge_pairs(
+                seq1.data_ptr(), qual1.data_ptr(), len1.data_ptr(),
+                seq2.data_ptr(), qual2.data_ptr(), len2.data_ptr(),
+                ints.data_ptr(), seq.data_ptr(), qual.data_ptr(), n, L, lo,
+                int(mismatch_penalty), float(np.float32(max_mismatch_frac)),
+                _kernels.stream_ptr(dev))
+        _kernels.check(err, "bs_merge_pairs")
+        merge_pairs.launches += 1
+    return MergeResult(ints[0], ints[1], ints[2], ints[3], seq, qual)
+
+
+def merge_pairs(seq1, qual1, len1, seq2, qual2, len2,
+                min_overlap: int = 10, mismatch_penalty: int = 1,
+                max_mismatch_frac: float = 0.25) -> MergeResult:
+    """Merge padded read pairs on their device. seq2/qual2 are as sequenced
+    (this function reverse-complements them). All [n, L] u8 tensors;
+    lengths of any integer type, [n]. CPU tensors run `merge_pairs_torch`;
+    CUDA tensors run the kernel (counted in `merge_pairs.launches`) or
+    raise."""
+    if seq1.is_cuda:
+        return _merge_pairs_cuda(seq1, qual1, len1, seq2, qual2, len2,
+                                 min_overlap, mismatch_penalty,
+                                 max_mismatch_frac)
+    if seq1.device.type != "cpu":
+        raise ValueError("merge_pairs: unsupported device %s" % seq1.device)
+    return merge_pairs_torch(seq1, qual1, len1, seq2, qual2, len2,
+                             min_overlap, mismatch_penalty, max_mismatch_frac)
+
+
+merge_pairs.launches = 0
 
 
 def _revcomp_b(s: bytes) -> bytes:

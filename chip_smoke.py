@@ -15,14 +15,16 @@ adapters in one launch; the device-parse kernels of csrc/parse.cu on
 DEVICE_PARSE_EDGE_CASES, on MANY_TILE_CASES (1,024 tiles and more, at
 three views off 16-byte alignment, 20 runs each, so that the tiles'
 look-back meets contention), a 256 MiB ragged chunk at 3,121,343 x 300
-and a 256 MiB uniform one at 150 columns), then
+and a 256 MiB uniform one at 150 columns; the merge kernel of
+csrc/merge.cu on MERGE_EDGE_CASES, MERGE_CARD_CASES and the first batch
+pair of the merge mates), then
 drives the port's paths, each with the launch counts set to 0 just before
-it and read just after, and with no plain torch version of a host-route
-or device-parse kernel (ops/nw.py's wavefronts, qc_stats_torch,
+it and read just after, and with no plain torch version of a host-route,
+device-parse or merge kernel (ops/nw.py's wavefronts, qc_stats_torch,
 adapter_content_torch, read_hashes_torch, raw_stream_qc_torch,
 newline_positions_torch, record_offsets_torch, gather_padded_torch,
-count_records_torch) allowed a CUDA tensor, in this process or in the
-ranks it spawns:
+count_records_torch, merge_pairs_torch) allowed a CUDA tensor, in this
+process or in the ranks it spawns:
 
 * QCModel(device="cuda").run_file_device over a 2 GiB uniform FASTQ file
   and a 1 GiB quality-binned one, each checked panel by panel against an
@@ -52,8 +54,9 @@ ranks it spawns:
   the generator;
 * the command line (python -m blazeseq_tpu_torch: stats, stats --device,
   trim in three modes, demux, merge, tiles) in-process on the card over
-  the 1M-read file and 250,000 read pairs, against the host twins, and on
-  20,000-read prefixes against the same commands on the CPU;
+  the 1M-read file and 250,000 read pairs, against the host twins (merge:
+  one merge_pairs launch a batch pair), and on 20,000-read prefixes
+  against the same commands on the CPU;
 * the mesh layer on torch.distributed. NCCL takes one rank a card, so a
   1-rank NCCL mesh runs in this process: QCModel(mesh=...).run_file with
   the options above, against that path's single-device report, and
@@ -113,6 +116,7 @@ KERNEL_RAGGED_SOURCE = "blazeseq_tpu_torch/csrc/ragged_qc.cu"
 KERNEL_QC_STATS_SOURCE = "blazeseq_tpu_torch/csrc/qc_stats.cu"
 KERNEL_ADAPTER_SOURCE = "blazeseq_tpu_torch/csrc/adapter.cu"
 KERNEL_HASH_SOURCE = "blazeseq_tpu_torch/csrc/dedup.cu"
+KERNEL_MERGE_SOURCE = "blazeseq_tpu_torch/csrc/merge.cu"
 # the upstream nw_gpu example: 1M reads x 40 bp against a 40 bp reference
 NW_READS = 1_000_000
 NW_READ_LEN = 40
@@ -187,6 +191,8 @@ NW_VARIANT_OPS_PER_CELL = dict(local=6, semiglobal=5, affine=8,
 # (up to the read's first hit); the hashes two multiply-adds per byte
 QC_STATS_OPS_PER_POSITION = 10
 HASH_OPS_PER_BYTE = 4
+# merge_pairs: one comparison a byte pair of an overlap scored
+MERGE_OPS_PER_COMPARE = 1
 # NWAligner's five variant combinations (mode, gap_open) by the name of
 # their kernel mode
 NW_VARIANTS = dict(local=("local", None), semiglobal=("semiglobal", None),
@@ -983,6 +989,194 @@ def write_mates(path1, path2, n, seed):
         rec[:, -1] = 10
         rec.tofile(path)
     return rs
+
+
+# merge_pairs' edge cases (csrc/merge.cu), shared by phase_kernel_merge and
+# the CPU tests against the reference. Each is (seq1, qual1, len1, seq2,
+# qual2, len2) and merge_pairs' keywords; the bytes of a row past its read
+# are random, which no output may read.
+MERGE_EDGE_CASES = (
+    "planted overlaps", "lengths above L (to_padded max_len)",
+    "zero-length reads", "min_overlap 0", "min_overlap -1",
+    "min_overlap above L", "mismatch_penalty 0", "mismatch_penalty 3",
+    "max_mismatch_frac 0.0", "max_mismatch_frac 0.1",
+    "max_mismatch_frac 1.0", "lowercase, N and other bytes",
+    "a tie at two overlaps", "L = 1", "L = 17", "L = 300", "n = 0",
+    "int64 lengths")
+# the card-only ones: the merge command's batch, and rows at and above the
+# widest that the kernel stages in shared memory (csrc/merge.cu's
+# kMaxStagedL, 4,080)
+MERGE_CARD_CASES = ("the merge command's batch, 4,096 x 256",
+                    "rows at the staging cap, L = 4,080",
+                    "rows above the staging cap, L = 4,200")
+MERGE_BATCH = 4096  # pairs a batch of the merge command
+_MERGE_COMP = np.full(256, ord("N"), np.uint8)
+_MERGE_COMP[np.frombuffer(b"ACGTacgtN", np.uint8)] = np.frombuffer(
+    b"TGCATGCAN", np.uint8)
+
+
+def _mate_reads(rng, len1, len2, overlap, errors=0, alphabet=b"ACGT"):
+    """Read pairs from fragments: R1 = the first len1 bases, R2 the reverse
+    complement of the last len2, the two sharing `overlap` bases (clipped
+    to the shorter read); `errors` bases of R1 inside the overlap changed.
+    Lists of u8 arrays."""
+    a = np.frombuffer(alphabet, np.uint8)
+    n = len(len1)
+    overlap, errors = (np.broadcast_to(x, n) for x in (overlap, errors))
+    r1, r2 = [], []
+    for i in range(n):
+        l1, l2 = max(int(len1[i]), 0), max(int(len2[i]), 0)
+        o = min(int(overlap[i]), l1, l2)
+        frag = rng.choice(a, l1 + l2 - o)
+        s1 = frag[:l1].copy()
+        k = min(int(errors[i]), o)
+        if k:
+            at = l1 - o + rng.choice(o, k, replace=False)
+            s1[at] = np.where(s1[at] == ord("A"), ord("C"), ord("A"))
+        r1.append(s1)
+        r2.append(_MERGE_COMP[frag[len(frag) - l2:][::-1]])
+    return r1, r2
+
+
+def _mate_rows(rng, reads, L, lengths=None):
+    """u8[n, L] rows of the reads (the first L bases, random bytes after
+    them), random qualities in [33, 75) over the whole row, and the
+    lengths (true ones, even past L; `lengths` replaces them)."""
+    n = len(reads)
+    seq = rng.integers(0, 256, (n, L)).astype(np.uint8)
+    for i, r in enumerate(reads):
+        k = min(len(r), L)
+        seq[i, :k] = r[:k]
+    qual = rng.integers(33, 75, (n, L)).astype(np.uint8)
+    if lengths is None:
+        lengths = [len(r) for r in reads]
+    return seq, qual, np.asarray(lengths, np.int32)
+
+
+def _mates(rng, L, len1, len2, overlap, errors=0, alphabet=b"ACGT"):
+    r1, r2 = _mate_reads(rng, len1, len2, overlap, errors, alphabet)
+    s1, q1, n1 = _mate_rows(rng, r1, L, len1)
+    s2, q2, n2 = _mate_rows(rng, r2, L, len2)
+    return s1, q1, n1, s2, q2, n2
+
+
+def _to_padded_mates(rng, len1, len2, overlap, max_len):
+    """Pairs padded by the port's FastqBatch.to_padded(max_len=): rows
+    clamped to L = max_len rounded up to 128, lengths true."""
+    from blazeseq_tpu_torch.fastq.batch import FastqBatch
+
+    out = []
+    errors = rng.integers(0, 3, len(len1))
+    for reads in _mate_reads(rng, len1, len2, overlap, errors):
+        ends = np.cumsum([len(r) for r in reads]).astype(np.int64)
+        seq = np.concatenate(reads)
+        qual = rng.integers(33, 75, len(seq)).astype(np.uint8)
+        pb = FastqBatch.from_arrays(seq, qual, ends, np.zeros(0, np.uint8),
+                                    np.zeros(len(ends), np.int64)).to_padded(
+            max_len=max_len)
+        out += [pb.seq, pb.qual, pb.lengths]
+    return tuple(out)
+
+
+def merge_edge_case(label, seed):
+    """One case of MERGE_EDGE_CASES or MERGE_CARD_CASES: ((seq1, qual1,
+    len1, seq2, qual2, len2) as numpy arrays, merge_pairs' keywords)."""
+    cases = MERGE_EDGE_CASES + MERGE_CARD_CASES
+    rng = np.random.default_rng([seed, 29, cases.index(label)])
+
+    def planted(n, L, lens=None, overlap=None, errors=None, **kw):
+        lens = (1, L + 1) if lens is None else lens
+        len1, len2 = rng.integers(*lens, n), rng.integers(*lens, n)
+        ov = rng.integers(0, L + 1, n) if overlap is None else overlap
+        er = rng.integers(0, 4, n) if errors is None else errors
+        return _mates(rng, L, len1, len2, ov, er, **kw)
+
+    kw = {}
+    if label == "planted overlaps":
+        arrays = planted(96, 64)
+    elif label == "lengths above L (to_padded max_len)":
+        n = 64
+        arrays = _to_padded_mates(rng, rng.integers(100, 400, n),
+                                  rng.integers(100, 400, n),
+                                  rng.integers(20, 300, n), 150)
+    elif label == "zero-length reads":
+        len1, len2 = rng.integers(0, 33, 48), rng.integers(0, 33, 48)
+        len1[::3] = 0
+        len2[1::4] = 0
+        arrays = _mates(rng, 32, len1, len2, rng.integers(0, 33, 48))
+    elif label.startswith("min_overlap"):
+        L = 48
+        kw["min_overlap"] = {"0": 0, "-1": -1}.get(label.split()[1], L + 3)
+        # short overlaps, where a bound at or below 1 matters
+        arrays = planted(64, L, overlap=rng.integers(0, 9, 64),
+                         errors=np.zeros(64, np.int64))
+    elif label.startswith("mismatch_penalty"):
+        kw["mismatch_penalty"] = int(label.split()[1])
+        arrays = planted(96, 64, errors=rng.integers(0, 8, 96))
+    elif label.startswith("max_mismatch_frac"):
+        frac = float(label.split()[1])
+        kw.update(max_mismatch_frac=frac, min_overlap=5)
+        if frac == 0.1:
+            # overlaps of 10 k bases with k mismatches (accepted at the
+            # fp32 edge) or k + 1
+            ov = 10 * rng.integers(1, 7, 96)
+            er = ov // 10 + rng.integers(0, 2, 96)
+            arrays = planted(96, 80, lens=(70, 81), overlap=ov, errors=er)
+        else:
+            arrays = planted(96, 64, errors=rng.integers(0, 6, 96))
+    elif label == "lowercase, N and other bytes":
+        # mostly upper case, so that some pairs still merge
+        arrays = planted(96, 64, alphabet=b"ACGT" * 10 + b"acgtNnX\x00\xff")
+    elif label == "a tie at two overlaps":
+        # periodic reads tie at every even overlap; reads over {A, C} of up
+        # to 10 bases tie often by chance
+        n = 64
+        per = [np.frombuffer(b"AC" * 20, np.uint8)[:k] for k in
+               rng.integers(8, 40, n // 2)]
+        r1 = per + [rng.choice(np.frombuffer(b"AC", np.uint8), k)
+                    for k in rng.integers(4, 11, n // 2)]
+        r2 = ([_MERGE_COMP[p[::-1]] for p in per]
+              + [rng.choice(np.frombuffer(b"GT", np.uint8), k)
+                 for k in rng.integers(4, 11, n // 2)])
+        arrays = _mate_rows(rng, r1, 40) + _mate_rows(rng, r2, 40)
+        kw["min_overlap"] = 2
+    elif label.startswith("L = ") and label[4:].isdigit():
+        L = int(label[4:])
+        arrays = planted(64, L, lens=(0, L + 3))
+    elif label == "n = 0":
+        arrays = planted(0, 64)
+    elif label == "int64 lengths":
+        arrays = list(planted(64, 64))
+        arrays[2], arrays[5] = (arrays[i].astype(np.int64) for i in (2, 5))
+        arrays = tuple(arrays)
+    elif label == MERGE_CARD_CASES[0]:
+        # the merge command's batch: 150 bp mates of 200 bp fragments
+        n = MERGE_BATCH
+        arrays = planted(n, 256, lens=(READ_LEN, READ_LEN + 1),
+                         overlap=np.full(n, 2 * READ_LEN - FRAG_LEN),
+                         errors=rng.integers(0, 3, n))
+    elif label in MERGE_CARD_CASES[1:]:
+        L = 4080 if label == MERGE_CARD_CASES[1] else 4200
+        arrays = planted(6, L, lens=(L - 1200, L + 200),
+                         overlap=rng.integers(500, 2500, 6))
+    else:
+        raise ValueError(label)
+    return arrays, kw
+
+
+def merge_bound(len1, len2, L):
+    """bound() of one merge_pairs call at its default min_overlap (10):
+    the four [n, L] inputs and the lengths read once, the two [n, 2L]
+    outputs and four int32 a pair written once; MERGE_OPS_PER_COMPARE a
+    byte compared, o bytes for each feasible overlap o of each pair."""
+    n = len(len1)
+    lo = 10
+    hi = np.minimum(np.minimum(np.asarray(len1, np.int64),
+                               np.asarray(len2, np.int64)), L)
+    hi = np.where(hi >= lo, hi, lo - 1)
+    compares = int(((hi * (hi + 1) - (lo - 1) * lo) // 2).sum())
+    return bound(4 * n * L + 8 * n + 4 * n * L + 16 * n,
+                 MERGE_OPS_PER_COMPARE * compares)
 
 
 def check_report(rep, oracle, width):
@@ -2961,6 +3155,62 @@ def phase_device_parse(seed, ragged):
                 gbps=size / wall / 1e9)
 
 
+def merge_batch_pair(files, device="cuda"):
+    """The first batch pair of the merge mates as the merge command makes
+    it: MERGE_BATCH records of each file, padded by to_padded to one width
+    (the longer mate's, rounded up to 128), on `device`; (seq1, qual1,
+    len1, seq2, qual2, len2)."""
+    from blazeseq_tpu_torch.fastq.batch import padded_to_device
+    from blazeseq_tpu_torch.fastq.parser import FastqParser
+    from blazeseq_tpu_torch.io.readers import open_reader
+
+    batches = [FastqParser(open_reader(files[k])).next_batch(MERGE_BATCH)
+               for k in ("r1", "r2")]
+    width = max(int(np.diff(b._ends, prepend=0).max()) for b in batches)
+    out = []
+    for b in batches:
+        pb = padded_to_device(b.to_padded(max_len=width), device)
+        out += [pb.seq, pb.qual, pb.lengths]
+    return tuple(out)
+
+
+def phase_kernel_merge(seed, files):
+    """csrc/merge.cu against merge_pairs_torch on the card, every
+    MergeResult leaf exact: MERGE_EDGE_CASES, MERGE_CARD_CASES and the
+    first batch pair of the merge mates (250,000 pairs of 150 bp mates of
+    200 bp fragments, padded to 256 columns), on which the kernel and its
+    plain version are timed beside the bound."""
+    import torch
+
+    from blazeseq_tpu_torch.ops import merge
+
+    n_cases = 0
+    for label in MERGE_EDGE_CASES + MERGE_CARD_CASES:
+        arrays, kw = merge_edge_case(label, seed)
+        d = [torch.from_numpy(a).cuda() for a in arrays]
+        max_abs_diff(merge.merge_pairs(*d, **kw),
+                     merge.merge_pairs_torch(*d, **kw),
+                     "merge_pairs, " + label)
+        n_cases += 1
+    d = merge_batch_pair(files)
+    got = merge.merge_pairs(*d)
+    err = max_abs_diff(got, merge.merge_pairs_torch(*d),
+                       "merge_pairs, the first batch pair")
+    n, L = d[0].shape
+    merged = int((got.overlap > 0).sum())
+    rec = dict(shape="%dx%d" % (n, L), merged=merged, cases=n_cases + 1,
+               ms=cuda_ms(lambda: merge.merge_pairs(*d)),
+               plain_ms=cuda_ms(lambda: merge.merge_pairs_torch(*d), inner=1,
+                                trials=3),
+               max_abs_err=err,
+               **merge_bound(d[2].cpu().numpy(), d[5].cpu().numpy(), L))
+    log("merge_pairs %s (%d of %d pairs merged): kernel %.4f ms, plain %.4f "
+        "ms, bound %.5f ms (%s); == plain on %d cases"
+        % (rec["shape"], merged, n, rec["ms"], rec["plain_ms"],
+           rec["bound_ms"], rec["bound_by"], rec["cases"]))
+    return rec
+
+
 def _cli(argv, device, out_dir):
     """Run the port's CLI in-process; returns its stdout (out_dir masked),
     its output files' bytes and its wall time."""
@@ -3100,14 +3350,24 @@ def phase_cli(files, oracle, tmp):
     stats --device, trim in three modes, demux --mismatches 1, merge and
     tiles on the 1M-read file (merge on MATE_PAIRS pairs), each checked
     against the host twins; then each on the 20,000-read (pair) prefix on
-    the card and on the CPU, stdout and output files byte-equal."""
+    the card and on the CPU, stdout and output files byte-equal. The full
+    merge run makes one merge_pairs launch a batch pair."""
+    from blazeseq_tpu_torch.ops import merge
+
     times = {}
     for name, argv in CLI_COMMANDS:
         full = os.path.join(tmp, "cli_full")
         args = [a.format(out=full, **{"in": files["align"], "r1": files["r1"],
                                       "r2": files["r2"]}) for a in argv]
+        before = merge.merge_pairs.launches
         text, _, wall = _cli(args, "cuda", full)
         _cli_twin_check(name, files, oracle, text, full)
+        batch_pairs = -(-MATE_PAIRS // MERGE_BATCH)
+        if name == "merge" and (merge.merge_pairs.launches - before
+                                != batch_pairs):
+            raise AssertionError(
+                "cli merge: %d merge_pairs launches for %d batch pairs"
+                % (merge.merge_pairs.launches - before, batch_pairs))
         shutil.rmtree(full)
         outs = {}
         for device in ("cuda", "cpu"):
@@ -3515,19 +3775,20 @@ def _no_plain_on_card():
     steps and the device-parse API dispatch to (ops/nw.py's wavefronts,
     qc_stats_torch, adapter_content_torch, read_hashes_torch,
     raw_stream_qc_torch, newline_positions_torch, record_offsets_torch,
-    gather_padded_torch and count_records_torch) so that a call with a
-    CUDA tensor raises; returns a function that unwraps them. The plain
-    branches of read_hashes and of _read_hashes_into (the duplication
+    gather_padded_torch, count_records_torch and merge_pairs_torch) so
+    that a call with a CUDA tensor raises; returns a function that unwraps
+    them. The plain branches of read_hashes and of _read_hashes_into (the duplication
     sample) both call read_hashes_torch by the module's name, so both are
     covered."""
-    from blazeseq_tpu_torch.ops import (adapter, dedup, nw, raw_stats, scan,
-                                        stats)
+    from blazeseq_tpu_torch.ops import (adapter, dedup, merge, nw, raw_stats,
+                                        scan, stats)
 
     saved = [(nw, n) for n in ["nw_scores_torch"] + [
         plain for _, plain, _ in nw.VARIANT_MODES.values()]]
     saved += [(stats, "qc_stats_torch"), (adapter, "adapter_content_torch"),
               (dedup, "read_hashes_torch"),
-              (raw_stats, "raw_stream_qc_torch")]
+              (raw_stats, "raw_stream_qc_torch"),
+              (merge, "merge_pairs_torch")]
     saved += [(scan, n) for n in ("newline_positions_torch",
                                   "record_offsets_torch",
                                   "gather_padded_torch",
@@ -3578,6 +3839,7 @@ def _kernel_fns():
     """The wrapper of every kernel, by name; each counts its launches."""
     from blazeseq_tpu_torch.ops.adapter import adapter_content
     from blazeseq_tpu_torch.ops.dedup import read_hashes
+    from blazeseq_tpu_torch.ops.merge import merge_pairs
     from blazeseq_tpu_torch.ops.nw import nw_scores, nw_variant_scores
     from blazeseq_tpu_torch.ops.ragged_qc import ragged_qc
     from blazeseq_tpu_torch.ops.raw_stats import raw_stream_qc
@@ -3599,7 +3861,7 @@ def _kernel_fns():
                 newline_positions=newline_positions_device,
                 record_offsets=record_offsets_device,
                 gather_padded=gather_padded_device,
-                count_records=count_records_device)
+                count_records=count_records_device, merge_pairs=merge_pairs)
 
 
 def main(argv=None):
@@ -3666,7 +3928,7 @@ def main(argv=None):
          ("structural_bitmaps", "raw_stream_qc", "newline_positions",
           "record_offsets", "gather_padded", "count_records")),
         ("cli", lambda: phase_cli(*align["corpus"], tmp),
-         ("uniform_qc", "validate_decode", "qc_stats")),
+         ("uniform_qc", "validate_decode", "qc_stats", "merge_pairs")),
         ("mesh(nccl, 1 rank)",
          lambda: phase_mesh_nccl(args.seed, align["corpus"][0], align,
                                  kernels),
@@ -3685,6 +3947,8 @@ def main(argv=None):
         kparse, kparse_notes = phase_kernel_device_parse(args.seed, tmp)
         torch.cuda.synchronize()
         align["corpus"] = make_align_corpus(args.seed, tmp)
+        kmerge = phase_kernel_merge(args.seed, align["corpus"][0])
+        torch.cuda.synchronize()
         for path_name, fn, needed in paths:
             e2e[path_name], got = run_path(path_name, fn, kernels)
             for k in needed:
@@ -3714,7 +3978,7 @@ def main(argv=None):
     log("device-parse kernels:", json.dumps(kparse_notes))
     log("end to end:", json.dumps(e2e))
     log("total %.1f s" % (time.perf_counter() - t_start))
-    # no single PyTorch call computes any of the fourteen functions, so
+    # no single PyTorch call computes any of the fifteen functions, so
     # none has a library time; kernel A has one record per shape of
     # KERNEL_A_SHAPES. The ragged, the alignment variant and the three
     # padded-batch panel kernels replace XLA code (no Pallas kernel): their
@@ -3722,7 +3986,8 @@ def main(argv=None):
     # variants, qc_stats, adapter_content and read_hashes. The variant
     # kernel's ms, plain_ms and bound are its five modes' calls together at
     # the example's shape, each mode's under `modes`. The device-parse
-    # kernels replace XLA code of the reference's raw_stats.py and scan.py
+    # kernels replace XLA code of the reference's raw_stats.py and scan.py,
+    # and the merge kernel the reference's merge_pairs (XLA: a lax.scan)
     print(json.dumps({"kernels": [
         dict(name="uniform_qc", route="cuda", source=KERNEL_B_SOURCE,
              replaces="blazeseq_tpu/ops/fused_qc.py:205",
@@ -3762,6 +4027,9 @@ def main(argv=None):
         *(dict(name=name, route="cuda", source=KERNEL_PARSE_SOURCE,
                replaces=replaces, launches=launches[name], library_ms=None,
                **kparse[name]) for name, replaces in PARSE_KERNELS),
+        dict(name="merge_pairs", route="cuda", source=KERNEL_MERGE_SOURCE,
+             replaces="blazeseq_tpu/ops/merge.py:59-146",
+             launches=launches["merge_pairs"], library_ms=None, **kmerge),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 source tree or several in turn.
 
     python3 kernel_bench.py [--tree DIR ...] [--seed N] [--ragged-path]
-                            [--sweep] [--only device_parse]
+                            [--sweep] [--only device_parse|merge]
 
 Each DIR (default: this script's directory) holds a `blazeseq_tpu_torch`
 package; its kernels are built from its own sources and timed in a fresh
@@ -56,6 +56,15 @@ compare two commits on one card). Shapes:
   the six; the device time of an empty launch
   (`launch_floor_ms`); in a tree without the panel kernels these are its
   torch ops;
+* the merge path (`merge`; `--only merge` times this section alone):
+  merge_pairs at the merge command's 4,096 x 256 batch (csrc/merge.cu, or
+  a tree's torch loop) with its bound, the profiler's CUDA kernel launches
+  of one `merge` batch pair, `FastqBatch.to_padded`'s host ms on 4,096 x
+  150 bp reads, the `merge`, `trim --mode bwa` and `tiles` walls over
+  chip_smoke.py's 250,000 pairs and 1M reads (with the sha256 of the
+  merge and trim outputs, to hold trees against each other), and the
+  launches of one call of each other CLI device op (trim's three modes,
+  kmer_counts, the per-tile sums, demux_assign) on a 4,096 x 256 batch;
 * the CUDA kernel launches of one `run_file(align_to, adapters,
   duplicates, quartiles)` batch, from torch.profiler: the launches of
   runs over 1 and over 3 padded batches of chip_smoke's planted corpus,
@@ -175,6 +184,9 @@ def _one_tree(tree, seed, ragged_path=False, sweep=False, only=None):
     if only == "device_parse":
         out["device_parse"] = _device_parse(cs, seed)
         return out
+    if only == "merge":
+        out["merge"] = _merge(cs, seed)
+        return out
     rng = np.random.default_rng([seed, 3])
     acgt = np.frombuffer(b"ACGT", np.uint8)
     for label, B, Lq, Lr in (("nw_example", 65536, 64, 40),
@@ -244,6 +256,7 @@ def _one_tree(tree, seed, ragged_path=False, sweep=False, only=None):
     out["run_file_batch_launches_6_adapters"] = _batch_launches(
         cs, seed, cs.FASTQC_ADAPTERS)
     out["device_parse"] = _device_parse(cs, seed)
+    out["merge"] = _merge(cs, seed)
     if importlib.util.find_spec("blazeseq_tpu_torch.ops.ragged_qc"):
         out["ragged_qc"] = _ragged(cs, seed)
         if ragged_path:
@@ -604,6 +617,206 @@ def _device_parse(cs, seed):
     return out
 
 
+def _profiled(fn):
+    """fn() under torch.profiler, after the card has finished what was
+    queued before: (CUDA kernel launches, copies and fills (Memcpy /
+    Memset), the kernels by name)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = collections.Counter(e.name for e in prof.events()
+                                if e.device_type == DeviceType.CUDA)
+    copies = sum(v for k, v in names.items() if k.startswith("Mem"))
+    return sum(names.values()) - copies, copies, names
+
+
+def _cli_run(argv):
+    """The port's CLI in this process on the card, its stdout dropped;
+    the wall in seconds."""
+    import contextlib
+    import time
+
+    import torch
+
+    from blazeseq_tpu_torch.__main__ import main as cli_main
+
+    t0 = time.perf_counter()
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        rc = cli_main(argv, device="cuda")
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError("cli %s: exit %d" % (argv[0], rc))
+    return time.perf_counter() - t0
+
+
+def _merge_split(cs, r1, r2, repeats=10):
+    """Host ms of each step of one merge batch pair as the merge command
+    runs it (the first MERGE_BATCH pairs of r1 and r2, medians over
+    `repeats`): parse both batches from memory, to_padded both, upload
+    both, merge_pairs, read merged_len / seq / qual back, serialise. Each
+    step that queues work on the card ends in a synchronize."""
+    import statistics
+    import time
+
+    import numpy as np
+    import torch
+
+    import blazeseq_tpu_torch as bt
+    from blazeseq_tpu_torch.fastq.batch import (padded_to_device,
+                                                serialize_fastq_rows)
+    from blazeseq_tpu_torch.ops import merge
+
+    data = []
+    for path in (r1, r2):
+        with open(path, "rb") as f:
+            data.append(f.read(cs.MERGE_BATCH * 512))
+    state = {}
+
+    def parse():
+        state["b"] = [bt.FastqParser(bt.MemoryReader(x)).next_batch(
+            cs.MERGE_BATCH) for x in data]
+
+    def pad():
+        w = max(int(np.diff(b._ends, prepend=0).max()) for b in state["b"])
+        state["pb"] = [b.to_padded(max_len=w) for b in state["b"]]
+
+    def upload():
+        state["d"] = [padded_to_device(pb, "cuda") for pb in state["pb"]]
+        torch.cuda.synchronize()
+
+    def run():
+        (p1, p2) = state["d"]
+        state["res"] = merge.merge_pairs(p1.seq, p1.qual, p1.lengths,
+                                         p2.seq, p2.qual, p2.lengths)
+        torch.cuda.synchronize()
+
+    def read_back():
+        n = state["d"][0].n_records
+        res = state["res"]
+        state["host"] = (res.merged_len.cpu().numpy()[:n],
+                         res.seq.cpu().numpy()[:n],
+                         res.qual.cpu().numpy()[:n])
+
+    def serialise():
+        b1 = state["b"][0]
+        lens, seq, qual = state["host"]
+        serialize_fastq_rows(b1._id_bytes, b1._id_ends, seq, qual, lens)
+
+    steps = dict(parse=parse, to_padded=pad, upload=upload,
+                 merge_pairs=run, read_back=read_back, serialise=serialise)
+    times = {k: [] for k in steps}
+    for _ in range(repeats + 1):
+        for name, fn in steps.items():
+            t0 = time.perf_counter()
+            fn()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+    return {k: statistics.median(v[1:]) for k, v in times.items()}
+
+
+def _merge(cs, seed):
+    """The merge path: merge_pairs' card-alone time at the merge command's
+    4,096 x 256 batch (chip_smoke.MERGE_CARD_CASES[0]) with its bound; the
+    profiler's CUDA kernel launches of one merge batch pair (the command
+    over 1 and 3 batch pairs, their difference over 2); to_padded's host ms
+    on 4,096 x 150 bp reads; the merge, trim (bwa) and tiles walls over
+    chip_smoke.py's 250,000 pairs and 1M reads, with the sha256 of the
+    merge and trim outputs; the host ms of each step of a merge batch pair
+    (_merge_split); and the launches one call of each other CLI device op
+    makes on a 4,096 x 256 batch of those reads."""
+    import hashlib
+    import statistics
+    import time
+
+    import torch
+
+    from blazeseq_tpu_torch.fastq.batch import padded_to_device
+    from blazeseq_tpu_torch.fastq.parser import FastqParser
+    from blazeseq_tpu_torch.io.readers import open_reader
+    from blazeseq_tpu_torch.ops import demux, kmer, merge, tiles, trim
+
+    out = {}
+    arrays, _ = cs.merge_edge_case(cs.MERGE_CARD_CASES[0], seed)
+    d = [torch.from_numpy(a).cuda() for a in arrays]
+    if hasattr(merge, "merge_pairs_torch"):
+        _same(merge.merge_pairs(*d), merge.merge_pairs_torch(*d),
+              "merge_pairs")
+    out["merge_pairs"] = dict(
+        _times(lambda: merge.merge_pairs(*d), inner=3),
+        bound_ms=cs.merge_bound(arrays[2], arrays[5],
+                                arrays[0].shape[1])["bound_ms"])
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for k in (1, 3):
+            r1, r2 = (os.path.join(tmp, "r%d_%d.fastq" % (m, k))
+                      for m in (1, 2))
+            cs.write_mates(r1, r2, cs.MERGE_BATCH * k, seed)
+            argv = ["merge", "--out", os.path.join(tmp, "m.fastq"), r1, r2]
+            _cli_run(argv)  # warm-up
+            runs[k] = _profiled(lambda: _cli_run(argv))
+        diff = runs[3][2].copy()
+        diff.subtract(runs[1][2])
+        out["merge_batch_pair_launches"] = dict(
+            kernels_per_batch_pair=(runs[3][0] - runs[1][0]) / 2,
+            copies_per_batch_pair=(runs[3][1] - runs[1][1]) / 2,
+            by_name={k: v / 2 for k, v in sorted(diff.items()) if v})
+        b = FastqParser(open_reader(r1)).next_batch(cs.MERGE_BATCH)
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            b.to_padded(max_len=cs.READ_LEN)
+            times.append(1e3 * (time.perf_counter() - t0))
+        out["to_padded_host_ms"] = dict(
+            reads=b.num_records(), read_len=cs.READ_LEN,
+            median=statistics.median(times), min=min(times))
+        r1, r2, reads = (os.path.join(tmp, x) for x in (
+            "r1.fastq", "r2.fastq", "reads.fastq"))
+        cs.write_mates(r1, r2, cs.MATE_PAIRS, seed)
+        cs.write_corpus(reads, cs.ALIGN_READS, seed + 17, planted=True)
+        walls = {}
+        for name, argv, res in (
+                ("merge", ["merge", "--out", "{out}", r1, r2], "m.fastq"),
+                ("trim bwa", ["trim", "--mode", "bwa", "--out", "{out}",
+                              reads], "t.fastq"),
+                ("tiles", ["tiles", reads], None)):
+            path = os.path.join(tmp, res or "unused")
+            walls[name] = dict(wall_s=_cli_run(
+                [a.format(out=path) for a in argv]))
+            if res:
+                with open(path, "rb") as f:
+                    walls[name]["sha256"] = hashlib.sha256(
+                        f.read()).hexdigest()
+        out["cli_walls"] = walls
+        out["merge_batch_pair_split_ms"] = _merge_split(cs, r1, r2)
+        batch = FastqParser(open_reader(reads)).next_batch(
+            cs.MERGE_BATCH)
+        batch._finalize()
+        pb = padded_to_device(batch.to_padded(), "cuda")
+        tl = tiles.parse_illumina_tiles(batch._id_bytes, batch._id_ends)
+        ops = dict(
+            trim_window=lambda: trim.sliding_window_trim(
+                pb.qual, pb.lengths, 33, 15, window=4),
+            trim_bwa=lambda: trim.bwa_trim(pb.qual, pb.lengths, 33, 20),
+            trim_ends=lambda: trim.clip_ends(pb.qual, pb.lengths, 33),
+            kmer=lambda: kmer.kmer_counts(pb.seq, pb.lengths, k=4),
+            tiles=lambda: tiles.PerTileAccumulator().add_batch(
+                tl, pb.qual, pb.lengths, 33, n_records=pb.n_records),
+            demux=lambda: demux.demux_assign(pb.seq, pb.lengths,
+                                             cs.DEMUX_BARCODES, 1))
+        launches = {}
+        for name, fn in ops.items():
+            fn()
+            k, c, names = _profiled(fn)
+            launches[name] = dict(kernels=k, copies=c, by_name=dict(names))
+        out["cli_op_launches_%dx%d" % tuple(pb.seq.shape)] = launches
+    return out
+
+
 def _ragged(cs, seed):
     import numpy as np
     import torch
@@ -655,7 +868,7 @@ def main(argv=None):
     ap.add_argument("--sweep", action="store_true",
                     help="also time qc_stats over rows a block x cluster "
                     "size")
-    ap.add_argument("--only", choices=("device_parse",),
+    ap.add_argument("--only", choices=("device_parse", "merge"),
                     help="time only this section")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)

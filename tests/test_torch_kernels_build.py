@@ -80,7 +80,8 @@ def test_sources_compile_together_then_link(fake_nvcc):
 def test_every_kernel_source_is_built_and_bound():
     assert _kernels.SOURCES == ("validate.cu", "uniform_qc.cu", "nw.cu",
                                 "scan.cu", "ragged_qc.cu", "qc_stats.cu",
-                                "adapter.cu", "dedup.cu", "parse.cu")
+                                "adapter.cu", "dedup.cu", "parse.cu",
+                                "merge.cu")
     for name in _kernels.SOURCES:
         assert os.path.exists(os.path.join(_kernels.CSRC, name))
     # the C entry points of each kernel source, each with its argument types
@@ -93,7 +94,8 @@ def test_every_kernel_source_is_built_and_bound():
                "dedup.cu": ("bs_read_hashes",),
                "parse.cu": ("bs_raw_stream_qc", "bs_newline_positions",
                             "bs_record_offsets", "bs_gather_padded",
-                            "bs_count_records")}
+                            "bs_count_records"),
+               "merge.cu": ("bs_merge_pairs",)}
     for source, names in entries.items():
         with open(os.path.join(_kernels.CSRC, source)) as f:
             text = f.read()
