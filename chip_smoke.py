@@ -191,8 +191,10 @@ NW_VARIANT_OPS_PER_CELL = dict(local=6, semiglobal=5, affine=8,
 # (up to the read's first hit); the hashes two multiply-adds per byte
 QC_STATS_OPS_PER_POSITION = 10
 HASH_OPS_PER_BYTE = 4
-# merge_pairs: one comparison a byte pair of an overlap scored
-MERGE_OPS_PER_COMPARE = 1
+# merge_pairs: the bit-sliced compare of csrc/merge.cu takes 32 positions
+# of an overlap in 8 int32 operations (three funnel shifts, three
+# three-input logic ops, a popc and an add)
+MERGE_OPS_PER_COMPARE = 8 / 32
 # NWAligner's five variant combinations (mode, gap_open) by the name of
 # their kernel mode
 NW_VARIANTS = dict(local=("local", None), semiglobal=("semiglobal", None),
@@ -1002,13 +1004,16 @@ MERGE_EDGE_CASES = (
     "max_mismatch_frac 0.0", "max_mismatch_frac 0.1",
     "max_mismatch_frac 1.0", "lowercase, N and other bytes",
     "a tie at two overlaps", "L = 1", "L = 17", "L = 300", "n = 0",
-    "int64 lengths")
-# the card-only ones: the merge command's batch, and rows at and above the
-# widest that the kernel stages in shared memory (csrc/merge.cu's
-# kMaxStagedL, 4,080)
+    "int64 lengths", "every byte value in R1", "ties far apart at L = 256")
+# the card-only ones: the merge command's batch, wide rows whose staging
+# takes fewer warps a block (csrc/merge.cu: 8 and 4 on the H100's 227 KB
+# a block), MiSeq amplicon mates (2 x 300 bp of 450-550 bp fragments,
+# padded to 384), and rows too wide for one warp's slice of shared memory
+# (about 7 bytes a column), which the kernel reads from device memory
 MERGE_CARD_CASES = ("the merge command's batch, 4,096 x 256",
-                    "rows at the staging cap, L = 4,080",
-                    "rows above the staging cap, L = 4,200")
+                    "wide rows, L = 4,080", "wide rows, L = 4,200",
+                    "MiSeq 2 x 300, 4,096 x 384",
+                    "rows wider than the staging, L = 34,000")
 MERGE_BATCH = 4096  # pairs a batch of the merge command
 _MERGE_COMP = np.full(256, ord("N"), np.uint8)
 _MERGE_COMP[np.frombuffer(b"ACGTacgtN", np.uint8)] = np.frombuffer(
@@ -1155,10 +1160,50 @@ def merge_edge_case(label, seed):
         arrays = planted(n, 256, lens=(READ_LEN, READ_LEN + 1),
                          overlap=np.full(n, 2 * READ_LEN - FRAG_LEN),
                          errors=rng.integers(0, 3, n))
-    elif label in MERGE_CARD_CASES[1:]:
-        L = 4080 if label == MERGE_CARD_CASES[1] else 4200
+    elif label in MERGE_CARD_CASES[1:3] + MERGE_CARD_CASES[4:]:
+        L = int(label.split("L = ")[1].replace(",", ""))
         arrays = planted(6, L, lens=(L - 1200, L + 200),
                          overlap=rng.integers(500, 2500, 6))
+    elif label == MERGE_CARD_CASES[3]:
+        n = MERGE_BATCH
+        arrays = planted(n, 384, lens=(300, 301),
+                         overlap=600 - rng.integers(450, 551, n),
+                         errors=rng.integers(0, 3, n))
+    elif label == "every byte value in R1":
+        # each R1 row holds all 256 byte values (rotated), each R2 row
+        # letters of either case, N and other bytes: every R1 code, the
+        # code of no letter included, meets every rc(R2) letter; with no
+        # penalty any match merges, so the consensus takes these bytes too
+        n, L = 128, 256
+        seq1 = ((np.arange(L)[None, :] + 7 * np.arange(n)[:, None]) % 256
+                ).astype(np.uint8)
+        r2 = rng.choice(np.frombuffer(b"ACGTNacgtn\x00\xff-*RY", np.uint8),
+                        (n, L))
+        len1, len2 = rng.integers(1, L + 1, n), rng.integers(1, L + 1, n)
+        len1[::4] = L
+        arrays = (seq1, rng.integers(33, 75, (n, L)).astype(np.uint8),
+                  len1.astype(np.int32), r2,
+                  rng.integers(33, 75, (n, L)).astype(np.uint8),
+                  len2.astype(np.int32))
+        kw.update(mismatch_penalty=0, max_mismatch_frac=1.0, min_overlap=1)
+    elif label == "ties far apart at L = 256":
+        # period-2 reads of 100-250 bases, R2 the reverse complement of R1,
+        # then the x bases of R1 just before the last o1 = len - 2x changed:
+        # the full overlap and o1 both score o1. x a multiple of 16 with
+        # 4x < len - 10 puts both in one lane of the kernel's order (o_hi -
+        # u for u = 0 and u = 2x, both in the upper half); other x in two
+        n, L = 64, 256
+        lens = rng.integers(100, 251, n)
+        r1, r2 = [], []
+        for i, k in enumerate(lens):
+            per = np.frombuffer(b"AC" * 128, np.uint8)[:k].copy()
+            r2.append(_MERGE_COMP[per[::-1]])
+            x = (16 * rng.integers(1, (k - 11) // 64 + 1) if i % 2 == 0
+                 else rng.integers(1, (k - 20) // 2 + 1))
+            o1 = k - 2 * x
+            per[k - o1 - x:k - o1] = ord("G")
+            r1.append(per)
+        arrays = _mate_rows(rng, r1, L) + _mate_rows(rng, r2, L)
     else:
         raise ValueError(label)
     return arrays, kw
@@ -1166,16 +1211,22 @@ def merge_edge_case(label, seed):
 
 def merge_bound(len1, len2, L):
     """bound() of one merge_pairs call at its default min_overlap (10):
-    the four [n, L] inputs and the lengths read once, the two [n, 2L]
-    outputs and four int32 a pair written once; MERGE_OPS_PER_COMPARE a
-    byte compared, o bytes for each feasible overlap o of each pair."""
+    of each input row only the bytes the outputs depend on read once, its
+    first min(len, L) columns in 32-byte sectors (a read longer than L
+    reads column L - 1), and the lengths; the two [n, 2L] outputs and four
+    int32 a pair written once; MERGE_OPS_PER_COMPARE operations a position
+    compared (8 per 32-position word in the bit-sliced form), o positions
+    for each feasible overlap o of each pair."""
     n = len(len1)
     lo = 10
-    hi = np.minimum(np.minimum(np.asarray(len1, np.int64),
-                               np.asarray(len2, np.int64)), L)
+    len1 = np.asarray(len1, np.int64)
+    len2 = np.asarray(len2, np.int64)
+    used = sum(2 * ((np.clip(x, 0, L) + 31) // 32 * 32)
+               for x in (len1, len2))
+    hi = np.minimum(np.minimum(len1, len2), L)
     hi = np.where(hi >= lo, hi, lo - 1)
     compares = int(((hi * (hi + 1) - (lo - 1) * lo) // 2).sum())
-    return bound(4 * n * L + 8 * n + 4 * n * L + 16 * n,
+    return bound(int(used.sum()) + 8 * n + 4 * n * L + 16 * n,
                  MERGE_OPS_PER_COMPARE * compares)
 
 
@@ -3179,12 +3230,14 @@ def phase_kernel_merge(seed, files):
     MergeResult leaf exact: MERGE_EDGE_CASES, MERGE_CARD_CASES and the
     first batch pair of the merge mates (250,000 pairs of 150 bp mates of
     200 bp fragments, padded to 256 columns), on which the kernel and its
-    plain version are timed beside the bound."""
+    plain version are timed beside the bound; the kernel is also timed on
+    the MiSeq card case (4,096 x 384)."""
     import torch
 
     from blazeseq_tpu_torch.ops import merge
 
     n_cases = 0
+    miseq = {}
     for label in MERGE_EDGE_CASES + MERGE_CARD_CASES:
         arrays, kw = merge_edge_case(label, seed)
         d = [torch.from_numpy(a).cuda() for a in arrays]
@@ -3192,6 +3245,11 @@ def phase_kernel_merge(seed, files):
                      merge.merge_pairs_torch(*d, **kw),
                      "merge_pairs, " + label)
         n_cases += 1
+        if label == MERGE_CARD_CASES[3]:
+            # the second timed shape: MiSeq amplicon mates
+            miseq = dict(ms_4096x384=cuda_ms(lambda: merge.merge_pairs(*d)),
+                         bound_ms_4096x384=merge_bound(
+                             arrays[2], arrays[5], 384)["bound_ms"])
     d = merge_batch_pair(files)
     got = merge.merge_pairs(*d)
     err = max_abs_diff(got, merge.merge_pairs_torch(*d),
@@ -3202,12 +3260,14 @@ def phase_kernel_merge(seed, files):
                ms=cuda_ms(lambda: merge.merge_pairs(*d)),
                plain_ms=cuda_ms(lambda: merge.merge_pairs_torch(*d), inner=1,
                                 trials=3),
-               max_abs_err=err,
+               max_abs_err=err, **miseq,
                **merge_bound(d[2].cpu().numpy(), d[5].cpu().numpy(), L))
     log("merge_pairs %s (%d of %d pairs merged): kernel %.4f ms, plain %.4f "
-        "ms, bound %.5f ms (%s); == plain on %d cases"
+        "ms, bound %.5f ms (%s); 4096x384: kernel %.4f ms, bound %.5f ms; "
+        "== plain on %d cases"
         % (rec["shape"], merged, n, rec["ms"], rec["plain_ms"],
-           rec["bound_ms"], rec["bound_by"], rec["cases"]))
+           rec["bound_ms"], rec["bound_by"], rec["ms_4096x384"],
+           rec["bound_ms_4096x384"], rec["cases"]))
     return rec
 
 

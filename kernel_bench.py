@@ -2,7 +2,8 @@
 source tree or several in turn.
 
     python3 kernel_bench.py [--tree DIR ...] [--seed N] [--ragged-path]
-                            [--sweep] [--only device_parse|merge]
+                            [--sweep]
+                            [--only device_parse|merge|merge_kernel]
 
 Each DIR (default: this script's directory) holds a `blazeseq_tpu_torch`
 package; its kernels are built from its own sources and timed in a fresh
@@ -56,9 +57,11 @@ compare two commits on one card). Shapes:
   the six; the device time of an empty launch
   (`launch_floor_ms`); in a tree without the panel kernels these are its
   torch ops;
-* the merge path (`merge`; `--only merge` times this section alone):
-  merge_pairs at the merge command's 4,096 x 256 batch (csrc/merge.cu, or
-  a tree's torch loop) with its bound, the profiler's CUDA kernel launches
+* the merge path (`merge`; `--only merge` times this section alone,
+  `--only merge_kernel` only its first item): merge_pairs at the merge
+  command's 4,096 x 256 batch and at MiSeq amplicon mates' 4,096 x 384
+  (chip_smoke.MERGE_CARD_CASES; csrc/merge.cu, or a tree's torch loop)
+  with their bounds, the profiler's CUDA kernel launches
   of one `merge` batch pair, `FastqBatch.to_padded`'s host ms on 4,096 x
   150 bp reads, the `merge`, `trim --mode bwa` and `tiles` walls over
   chip_smoke.py's 250,000 pairs and 1M reads (with the sha256 of the
@@ -184,8 +187,8 @@ def _one_tree(tree, seed, ragged_path=False, sweep=False, only=None):
     if only == "device_parse":
         out["device_parse"] = _device_parse(cs, seed)
         return out
-    if only == "merge":
-        out["merge"] = _merge(cs, seed)
+    if only in ("merge", "merge_kernel"):
+        out["merge"] = _merge(cs, seed, kernel_only=only == "merge_kernel")
         return out
     rng = np.random.default_rng([seed, 3])
     acgt = np.frombuffer(b"ACGT", np.uint8)
@@ -719,11 +722,18 @@ def _merge_split(cs, r1, r2, repeats=10):
     return {k: statistics.median(v[1:]) for k, v in times.items()}
 
 
-def _merge(cs, seed):
+# the merge kernel's timed shapes: the merge command's batch and MiSeq
+# amplicon mates (chip_smoke.MERGE_CARD_CASES)
+MERGE_SHAPES = ("the merge command's batch, 4,096 x 256",
+                "MiSeq 2 x 300, 4,096 x 384")
+
+
+def _merge(cs, seed, kernel_only=False):
     """The merge path: merge_pairs' card-alone time at the merge command's
-    4,096 x 256 batch (chip_smoke.MERGE_CARD_CASES[0]) with its bound; the
-    profiler's CUDA kernel launches of one merge batch pair (the command
-    over 1 and 3 batch pairs, their difference over 2); to_padded's host ms
+    4,096 x 256 batch and at 4,096 x 384 (MERGE_SHAPES) with their bounds
+    (with kernel_only, nothing else); the profiler's CUDA kernel launches
+    of one merge batch pair (the command over 1 and 3 batch pairs, their
+    difference over 2); to_padded's host ms
     on 4,096 x 150 bp reads; the merge, trim (bwa) and tiles walls over
     chip_smoke.py's 250,000 pairs and 1M reads, with the sha256 of the
     merge and trim outputs; the host ms of each step of a merge batch pair
@@ -741,15 +751,21 @@ def _merge(cs, seed):
     from blazeseq_tpu_torch.ops import demux, kmer, merge, tiles, trim
 
     out = {}
-    arrays, _ = cs.merge_edge_case(cs.MERGE_CARD_CASES[0], seed)
-    d = [torch.from_numpy(a).cuda() for a in arrays]
-    if hasattr(merge, "merge_pairs_torch"):
-        _same(merge.merge_pairs(*d), merge.merge_pairs_torch(*d),
-              "merge_pairs")
-    out["merge_pairs"] = dict(
-        _times(lambda: merge.merge_pairs(*d), inner=3),
-        bound_ms=cs.merge_bound(arrays[2], arrays[5],
-                                arrays[0].shape[1])["bound_ms"])
+    for label in MERGE_SHAPES:
+        arrays, _ = cs.merge_edge_case(label, seed)
+        d = [torch.from_numpy(a).cuda() for a in arrays]
+        if hasattr(merge, "merge_pairs_torch"):
+            _same(merge.merge_pairs(*d), merge.merge_pairs_torch(*d),
+                  "merge_pairs " + label)
+        key = "merge_pairs" if label == MERGE_SHAPES[0] else (
+            "merge_pairs_%dx%d" % tuple(arrays[0].shape))
+        out[key] = dict(
+            _times(lambda: merge.merge_pairs(*d), inner=3),
+            bound_ms=cs.merge_bound(arrays[2], arrays[5],
+                                    arrays[0].shape[1])["bound_ms"])
+        del d
+    if kernel_only:
+        return out
     with tempfile.TemporaryDirectory() as tmp:
         runs = {}
         for k in (1, 3):
@@ -868,7 +884,8 @@ def main(argv=None):
     ap.add_argument("--sweep", action="store_true",
                     help="also time qc_stats over rows a block x cluster "
                     "size")
-    ap.add_argument("--only", choices=("device_parse", "merge"),
+    ap.add_argument("--only", choices=("device_parse", "merge",
+                                       "merge_kernel"),
                     help="time only this section")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)

@@ -7,15 +7,17 @@ numpy: lengths above L (rows from to_padded(max_len=), true lengths),
 zero-length reads, min_overlap 0, -1 and above L, mismatch_penalty 0 and
 3, max_mismatch_frac 0.0, 0.1 (overlaps of 10 k bases with k mismatches:
 the fp32 edge) and 1.0, lowercase bases, N and other bytes, ties, L of 1,
-17 and 300, n = 0 and int64 lengths. The bytes of a row past its read are
-random.
+17 and 300, n = 0, int64 lengths, R1 rows of all 256 byte values (every
+code of the kernel's bit-planes against every rc(R2) letter) and ties 32
+or more overlaps apart, in one lane of the kernel's order and in two. The
+bytes of a row past its read are random.
 
 On the CPU merge_pairs runs its plain torch version (merge_pairs_torch)
 and counts no launch. The card cases hold the kernel (csrc/merge.cu)
 against merge_pairs_torch on the same CUDA tensors, on the same cases, on
-the merge command's 4,096 x 256 batch and on rows wider than the kernel
-stages in shared memory; they skip where there is no CUDA device or no
-nvcc.
+the merge command's 4,096 x 256 batch, on MiSeq mates at 4,096 x 384, on
+wide rows staged by fewer warps a block and on rows too wide to stage in
+shared memory; they skip where there is no CUDA device or no nvcc.
 """
 
 import importlib.util
@@ -102,18 +104,46 @@ def test_cases_reach_their_edges():
         **kw)
     assert [o for o, _, _ in rows] == r.overlap.tolist()
     assert _tied_pairs(arrays, kw["min_overlap"]) > 0
+    # every R1 row holds all 256 byte values; some pairs merge on them
+    arrays, kw, r = res["every byte value in R1"]
+    assert all(len(set(row.tolist())) == 256 for row in arrays[0])
+    assert (r.overlap > 0).any() and (r.overlap == 0).any()
+    # ties 32 or more overlaps apart, some in one lane of the kernel's
+    # order (lane l scores o_lo + u and o_hi - u for u = l, l + 32, ...)
+    arrays, kw, r = res["ties far apart at L = 256"]
+    ties = _ties(arrays, 10)
+    assert all(o == min(t) for o, t in zip(r.overlap.tolist(), ties))
+    lanes = [{_lane(o, 10, hi) for o in t} for t, hi in
+             zip(ties, np.minimum(arrays[2], arrays[5]))]
+    assert any(len(t) > 1 and len(ln) == 1 for t, ln in zip(ties, lanes))
+    assert any(len(ln) > 1 for ln in lanes)
+    assert all(max(t) - min(t) >= 2 for t in ties)
+
+
+def _ties(arrays, min_overlap, penalty=1):
+    """Each pair's overlaps at its best score."""
+    seq1, _, len1, seq2, _, len2 = arrays
+    out = []
+    for a, la, b, lb in zip(seq1, len1, seq2, len2):
+        rc = merge._COMP[b[:lb][::-1]]
+        scores = {}
+        for o in range(max(min_overlap, 1), min(la, lb, len(a)) + 1):
+            m = int((a[la - o:la] == rc[:o]).sum())
+            scores[o] = m - penalty * (o - m)
+        best = max(scores.values(), default=None)
+        out.append([o for o, s in scores.items() if s == best])
+    return out
+
+
+def _lane(o, o_lo, o_hi):
+    """The lane of csrc/merge.cu's order that scores overlap o."""
+    u = o - o_lo if 2 * (o - o_lo) <= o_hi - o_lo else o_hi - o
+    return u % 32
 
 
 def _tied_pairs(arrays, min_overlap):
     """Pairs whose best score is reached at two overlaps or more."""
-    seq1, _, len1, seq2, _, len2 = arrays
-    tied = 0
-    for a, la, b, lb in zip(seq1, len1, seq2, len2):
-        rc = merge._COMP[b[:lb][::-1]]
-        scores = [2 * int((a[la - o:la] == rc[:o]).sum()) - o
-                  for o in range(max(min_overlap, 1), min(la, lb) + 1)]
-        tied += bool(scores) and scores.count(max(scores)) > 1
-    return tied
+    return sum(len(t) > 1 for t in _ties(arrays, min_overlap))
 
 
 def test_cpu_route_counts_no_launch_and_other_devices_raise():
@@ -167,3 +197,4 @@ def test_merge_kernel_refuses_bad_batches_on_card(card):
         merge.merge_pairs(d[0][:, :10].contiguous(), *d[1:])
     with pytest.raises(ValueError, match="int32"):
         merge.merge_pairs(*d, mismatch_penalty=1 << 40)
+
