@@ -28,7 +28,8 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("validate.cu", "uniform_qc.cu", "nw.cu", "scan.cu",
            "ragged_qc.cu", "qc_stats.cu", "adapter.cu", "dedup.cu",
-           "parse.cu", "merge.cu")
+           "parse.cu", "merge.cu", "trim.cu", "demux.cu", "tiles.cu",
+           "kmer.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "libblazeseq_kernels.so"
@@ -96,6 +97,16 @@ _SIGNATURES = {
     # min_overlap, mismatch_penalty, max_mismatch_frac, stream
     "bs_merge_pairs": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
                        _F, _P),
+    # qual, lengths, out0, out1, n, L, mode, offset, a, b, window, stream
+    "bs_trim": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P),
+    # seq, lengths, words, assign, best, n, L, K, bl, max_mm, stream
+    "bs_demux_assign": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
+    # qual, lengths, order, out, k, L, T, offset, max_phred, sm_count,
+    # stream
+    "bs_tile_sums": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P),
+    # seq, lengths, n_valid_ptr, n_valid_bytes, n_valid, out, n, L, k,
+    # sm_count, stream
+    "bs_kmer_counts": (_P, _P, _P, _I, _LL, _P, _LL, _I, _I, _I, _P),
 }
 
 

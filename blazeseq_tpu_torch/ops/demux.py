@@ -1,5 +1,4 @@
-"""Barcode demultiplexing (counterpart of blazeseq_tpu/ops/demux.py; torch
-ops, no kernel).
+"""Barcode demultiplexing (counterpart of blazeseq_tpu/ops/demux.py).
 
 Each read of a padded batch goes to the barcode with the fewest mismatches
 over its 5' prefix when exactly one barcode is within `max_mismatches`;
@@ -7,17 +6,25 @@ ties and misses give -1 (unassigned). 'N' in a BARCODE matches any base;
 reads are upper-cased with `& 0xDF`, and 'N' in a read mismatches every
 barcode base but 'N'. A read shorter than the barcode never matches.
 
+`demux_assign` dispatches on the reads' device: CUDA tensors run one launch
+of the hand-written kernel in csrc/demux.cu (counted in
+`demux_assign.launches`; the barcode set is uploaded once a set and
+device) or the call raises; CPU tensors run the plain torch version
+`demux_assign_torch` ([n, K, bl] compares).
+
 Host twin: `demux_assign_host` (pure Python).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .common import resolve_device
+from .. import _kernels
+from .common import check_cuda_batch, resolve_device
 
 N_BYTE = ord("N")
 
@@ -31,14 +38,10 @@ def _prep_barcodes(barcodes: Sequence[bytes]):
     return arr, bl
 
 
-def demux_assign(seq, lengths, barcodes: Sequence[bytes],
-                 max_mismatches: int = 1
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Assign padded reads [n, L] (a tensor, or an array taken on the CPU)
-    to barcodes, on the reads' device.
-
-    Returns (assignments i32[n] with -1 = unassigned/ambiguous,
-    best_mismatches i32[n])."""
+def demux_assign_torch(seq, lengths, barcodes: Sequence[bytes],
+                       max_mismatches: int = 1
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of `demux_assign`."""
     codes_np, bl = _prep_barcodes(barcodes)
     seq = torch.as_tensor(seq)
     if seq.shape[1] < bl:
@@ -54,6 +57,81 @@ def demux_assign(seq, lengths, barcodes: Sequence[bytes],
     ok = (best <= int(max_mismatches)) & (n_best == 1)
     return (torch.where(ok, best_k, -1).to(torch.int32),
             best.to(torch.int32))
+
+
+# the sets csrc/demux.cu takes: barcodes of up to 32 bases (a read's words
+# in registers), K * ceil(bl / 4) words in 48 KB of shared memory
+_MAX_CARD_BARCODE_LEN = 32
+_MAX_CARD_SET_WORDS = 48 * 1024 // 8
+
+
+@functools.lru_cache(maxsize=64)
+def _barcode_words(barcodes: Tuple[bytes, ...], device: torch.device):
+    """The set as csrc/demux.cu reads it, on `device`: int32 [2, K, W], W =
+    ceil(bl / 4), the upper-cased bytes four a word, then a mask word with
+    0xFF in each byte of a base other than 'N'. Made once a set and
+    device."""
+    codes, bl = _prep_barcodes(barcodes)
+    W = -(-bl // 4)
+    padded = np.zeros((2, len(barcodes), 4 * W), np.uint8)
+    padded[0, :, :bl] = codes
+    padded[1, :, :bl] = np.where(codes != N_BYTE, 0xFF, 0)
+    return torch.from_numpy(padded.view(np.int32).copy()).to(device)
+
+
+def _demux_assign_cuda(seq, lengths, barcodes, max_mismatches):
+    """One launch of csrc/demux.cu."""
+    barcodes = tuple(bytes(b) for b in barcodes)
+    words = _barcode_words(barcodes, seq.device)
+    K = words.shape[1]
+    bl = len(barcodes[0])
+    lengths = torch.as_tensor(lengths).to(torch.int32)
+    check_cuda_batch("demux_assign", [("seq", seq)], [("lengths", lengths)])
+    n, L = seq.shape
+    if L < bl:
+        raise ValueError("reads narrower than the barcode length")
+    if bl > _MAX_CARD_BARCODE_LEN:
+        raise ValueError("demux_assign: barcodes of %d bases; the kernel "
+                         "takes up to %d" % (bl, _MAX_CARD_BARCODE_LEN))
+    if K * words.shape[2] > _MAX_CARD_SET_WORDS:
+        raise ValueError("demux_assign: %d barcodes of %d bases; the kernel "
+                         "takes up to %d words of 4 bases" % (
+                             K, bl, _MAX_CARD_SET_WORDS))
+    # every best is in [0, bl + 1]: a bound past that range acts as its end
+    max_mm = min(max(int(max_mismatches), -1), bl + 1)
+    out = torch.empty((2, n), dtype=torch.int32, device=seq.device)
+    if n:
+        lib = _kernels.load()
+        dev = seq.device
+        with _kernels.on_device(dev):
+            err = lib.bs_demux_assign(
+                seq.data_ptr(), lengths.data_ptr(), words.data_ptr(),
+                out[0].data_ptr(), out[1].data_ptr(), n, L, K, bl, max_mm,
+                _kernels.stream_ptr(dev))
+        _kernels.check(err, "bs_demux_assign")
+        demux_assign.launches += 1
+    return out[0], out[1]
+
+
+def demux_assign(seq, lengths, barcodes: Sequence[bytes],
+                 max_mismatches: int = 1
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Assign padded reads [n, L] (a tensor, or an array taken on the CPU)
+    to barcodes, on the reads' device.
+
+    Returns (assignments i32[n] with -1 = unassigned/ambiguous,
+    best_mismatches i32[n]). CPU tensors run `demux_assign_torch`; CUDA
+    tensors run the kernel (counted in `demux_assign.launches`) or
+    raise."""
+    seq = torch.as_tensor(seq)
+    if seq.is_cuda:
+        return _demux_assign_cuda(seq, lengths, barcodes, max_mismatches)
+    if seq.device.type != "cpu":
+        raise ValueError("demux_assign: unsupported device %s" % seq.device)
+    return demux_assign_torch(seq, lengths, barcodes, max_mismatches)
+
+
+demux_assign.launches = 0
 
 
 def demux_assign_host(seqs: List[bytes], barcodes: Sequence[bytes],

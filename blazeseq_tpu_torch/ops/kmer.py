@@ -1,10 +1,14 @@
 """k-mer spectrum over padded read batches (counterpart of
-blazeseq_tpu/ops/kmer.py; torch ops, no kernel).
+blazeseq_tpu/ops/kmer.py).
 
 Exact counts of all 4^k DNA k-mers (k <= 8): 2-bit base codes (A=0 C=1 G=2
-T=3, case-insensitive; anything else poisons the window), rolling window
-codes from k shifted adds, and one bincount. Windows that leave the read or
-hold a non-ACGT byte take a sentinel bin past the last, which is dropped.
+T=3, case-insensitive; anything else poisons the window). `kmer_counts`
+dispatches on the batch's device: CUDA tensors run one launch of the
+hand-written kernel in csrc/kmer.cu after one zero fill of the bins
+(counted in `kmer_counts.launches`) or the call raises; CPU tensors run the
+plain torch version `kmer_counts_torch`: rolling window codes from k
+shifted adds and one bincount, windows that leave the read or hold a
+non-ACGT byte taking a sentinel bin past the last, which is dropped.
 """
 
 from __future__ import annotations
@@ -12,15 +16,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .common import length_mask
+from .. import _kernels
+from .common import check_cuda_batch, length_mask
 
 
-def kmer_counts(seq, lengths, n_records=None, *, k: int = 4) -> torch.Tensor:
-    """Count all 4^k k-mers of a padded batch [n, L] -> i32[4^k] on its
-    device. Windows lie inside the true read length (clipped to the padded
-    width) of the first `n_records` rows and hold only ACGT."""
+def _check_k(k):
     if not 1 <= k <= 8:
         raise ValueError("k must be in 1..8 (4^k histogram bins)")
+
+
+def kmer_counts_torch(seq, lengths, n_records=None, *,
+                      k: int = 4) -> torch.Tensor:
+    """Plain torch version of `kmer_counts`."""
+    _check_k(k)
     n, L = seq.shape
     dev = seq.device
     mask = length_mask(lengths, L)
@@ -44,6 +52,59 @@ def kmer_counts(seq, lengths, n_records=None, *, k: int = 4) -> torch.Tensor:
     codes = torch.where(ok, code, n_bins).view(-1).to(torch.int64)
     return torch.bincount(codes, minlength=n_bins + 1)[:n_bins].to(
         torch.int32)
+
+
+def _kmer_counts_cuda(seq, lengths, n_records, k):
+    """One zero fill of the bins and one launch of csrc/kmer.cu. A row
+    count on the card is read there, with no sync; one on the host is
+    passed by value."""
+    lengths = lengths.to(torch.int32)
+    check_cuda_batch("kmer_counts", [("seq", seq)], [("lengths", lengths)])
+    n, L = seq.shape
+    dev = seq.device
+    ptr, width, value = None, 0, n
+    if isinstance(n_records, torch.Tensor):
+        if n_records.numel() != 1:
+            raise ValueError("kmer_counts: n_records must be one value")
+        if n_records.is_cuda:
+            if n_records.device != dev:
+                raise ValueError("kmer_counts: n_records on %s, the batch on "
+                                 "%s" % (n_records.device, dev))
+            if n_records.dtype not in (torch.int32, torch.int64):
+                n_records = n_records.to(torch.int64)
+            ptr, width = n_records.data_ptr(), n_records.element_size()
+        else:
+            value = int(n_records)
+    elif n_records is not None:
+        value = int(n_records)
+    out = torch.zeros(4 ** k, dtype=torch.int32, device=dev)
+    if n and L:
+        lib = _kernels.load()
+        with _kernels.on_device(dev):
+            err = lib.bs_kmer_counts(
+                seq.data_ptr(), lengths.data_ptr(), ptr, width,
+                max(min(value, n), -1), out.data_ptr(), n, L, k,
+                _kernels.sm_count(dev.index), _kernels.stream_ptr(dev))
+        _kernels.check(err, "bs_kmer_counts")
+        kmer_counts.launches += 1
+    return out
+
+
+def kmer_counts(seq, lengths, n_records=None, *, k: int = 4) -> torch.Tensor:
+    """Count all 4^k k-mers of a padded batch [n, L] -> i32[4^k] on its
+    device. Windows lie inside the true read length (clipped to the padded
+    width) of the first `n_records` rows (an int or a one-value tensor) and
+    hold only ACGT. CPU tensors run `kmer_counts_torch`; CUDA tensors run
+    the kernel (counted in `kmer_counts.launches`) or raise."""
+    _check_k(k)
+    if seq.is_cuda:
+        return _kmer_counts_cuda(seq, lengths, n_records, k)
+    if seq.device.type != "cpu":
+        raise ValueError("kmer_counts: unsupported device %s" % seq.device)
+    return kmer_counts_torch(seq, lengths, n_records, k=k)
+
+
+kmer_counts.launches = 0
 
 
 def kmer_counts_cpu(reads, k: int = 4) -> np.ndarray:

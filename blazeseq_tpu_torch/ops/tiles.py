@@ -1,13 +1,17 @@
 """Per-tile sequence quality, FastQC's "per tile sequence quality" panel
-(counterpart of blazeseq_tpu/ops/tiles.py; torch ops, no kernel).
+(counterpart of blazeseq_tpu/ops/tiles.py).
 
 Illumina read ids carry the flowcell tile as the 5th colon-separated field
 of the first whitespace token (`instr:run:flowcell:lane:tile:x:y`). Tile
-numbers are parsed on the host from the id SoA; the [tile, position]
-quality sums are one int64 `index_add_` of the decoded Phred rows into
-per-tile rows, exact on any device whatever its float settings. They are
-returned in float32, as the reference returns them (exact below 2^24 per
-batch). PerTileAccumulator adds batches in int64 on the host; `mean()` /
+numbers are parsed on the host from the id SoA, and the host maps each row
+to its tile's row (`_tile_rows`). The [tile, position] Phred sums and base
+counts are integer sums, exact on any device whatever its float settings:
+CUDA tensors take one launch of the hand-written kernel in csrc/tiles.cu
+after one zero fill (counted in `per_tile_qual_sums.launches`) or the call
+raises; CPU tensors take the plain torch version
+`per_tile_qual_sums_torch` (two int64 `index_add_`s). They are returned in
+float32, as the reference returns them (exact below 2^24 per batch).
+PerTileAccumulator adds batches in int64 on the host; `mean()` /
 `deviation()` give the heatmap.
 """
 
@@ -18,6 +22,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import _kernels
+from .common import check_cuda_batch
 from .stats import MAX_PHRED
 
 
@@ -44,21 +50,9 @@ def parse_illumina_tiles(ids: np.ndarray, id_ends: np.ndarray) -> np.ndarray:
     return out
 
 
-def per_tile_qual_sums(tiles: np.ndarray, qual, lengths, offset: int,
-                       unique_tiles: Optional[np.ndarray] = None,
-                       n_records: Optional[int] = None
-                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """One batch's per-tile per-position Phred sums and base counts.
-
-    tiles: int32[n] (host); qual u8[n, L] and lengths i32[n] as tensors
-    (the sums run on their device) or arrays (on the CPU).
-    Returns (unique_tiles i64[T], sums f32[T, L], counts f32[T, L]) with
-    T >= 1 rows (one zero row when no tile is known), as the reference
-    returns them."""
-    tiles = np.asarray(tiles)
-    qual = torch.as_tensor(qual)
-    lengths = torch.as_tensor(lengths)
-    n, L = qual.shape
+def _tile_rows(tiles, n, unique_tiles, n_records):
+    """(unique_tiles, dst int32[n], rows): the row of each batch row's tile,
+    `rows` (= max(T, 1)) for unknown tiles and rows past n_records."""
     if n_records is None:
         n_records = n
     valid = np.arange(n) < n_records
@@ -70,9 +64,21 @@ def per_tile_qual_sums(tiles: np.ndarray, qual, lengths, offset: int,
     if n_t:
         hit &= unique_tiles[t_idx] == tiles
     rows = max(n_t, 1)
+    return unique_tiles, np.where(hit, t_idx, rows).astype(np.int32), rows
+
+
+def per_tile_qual_sums_torch(tiles: np.ndarray, qual, lengths, offset: int,
+                             unique_tiles: Optional[np.ndarray] = None,
+                             n_records: Optional[int] = None
+                             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Plain torch version of `per_tile_qual_sums`."""
+    tiles = np.asarray(tiles)
+    qual = torch.as_tensor(qual)
+    lengths = torch.as_tensor(lengths)
+    n, L = qual.shape
+    unique_tiles, dst, rows = _tile_rows(tiles, n, unique_tiles, n_records)
     # rows of unknown tiles go to an extra row that is dropped
-    dst = torch.from_numpy(np.where(hit, t_idx, rows).astype(np.int64)).to(
-        qual.device)
+    dst = torch.from_numpy(dst.astype(np.int64)).to(qual.device)
 
     mask = (torch.arange(L, device=qual.device)[None, :]
             < lengths.to(torch.int64)[:, None])
@@ -87,6 +93,84 @@ def per_tile_qual_sums(tiles: np.ndarray, qual, lengths, offset: int,
     sums, counts = (a[:rows].to(torch.float32).cpu().numpy()
                     for a in (sums, counts))
     return np.asarray(unique_tiles).astype(np.int64), sums, counts
+
+
+def _tile_order(dst, rows):
+    """The rows of known tiles (dst < rows) grouped by tile, for the
+    kernel: int32 [2, k], their indices, then their tile rows. Keys of 16
+    bits take numpy's stable radix sort, int32 keys its merge sort."""
+    key = dst.astype(np.uint16) if rows < (1 << 16) else dst
+    order = np.argsort(key, kind="stable")[:int((dst < rows).sum())]
+    return np.stack([order, dst[order]]).astype(np.int32)
+
+
+def _tile_sums_launch(qual, lengths, order, out, offset) -> None:
+    """One launch of csrc/tiles.cu, counted in
+    `per_tile_qual_sums.launches`: the rows of qual u8[n, L] (lengths i32
+    [n]) that `order` (int32 [2, k] on the card, from _tile_order) lists
+    added into out, zeroed int64 [2, T, L]."""
+    k = order.shape[1]
+    L = qual.shape[1]
+    if not (k and L):
+        return
+    lib = _kernels.load()
+    dev = qual.device
+    with _kernels.on_device(dev):
+        err = lib.bs_tile_sums(qual.data_ptr(), lengths.data_ptr(),
+                               order.data_ptr(), out.data_ptr(), k, L,
+                               out.shape[1], offset, MAX_PHRED,
+                               _kernels.sm_count(dev.index),
+                               _kernels.stream_ptr(dev))
+    _kernels.check(err, "bs_tile_sums")
+    per_tile_qual_sums.launches += 1
+
+
+def _per_tile_qual_sums_cuda(tiles, qual, lengths, offset, unique_tiles,
+                             n_records):
+    """The rows of known tiles grouped by tile on the host and sent up in
+    one copy, one zero fill and one launch into int64 [2, T, L], the sums
+    back in one copy, made float32 on the host."""
+    lengths = torch.as_tensor(lengths).to(torch.int32)
+    check_cuda_batch("per_tile_qual_sums", [("qual", qual)],
+                     [("lengths", lengths)])
+    n, L = qual.shape
+    offset = int(offset)
+    if not -(1 << 31) <= offset < (1 << 31):
+        raise ValueError("per_tile_qual_sums: offset %d is not an int32"
+                         % offset)
+    unique_tiles, dst, rows = _tile_rows(np.asarray(tiles), n, unique_tiles,
+                                         n_records)
+    out = torch.zeros((2, rows, L), dtype=torch.int64, device=qual.device)
+    order = torch.from_numpy(_tile_order(dst, rows)).to(qual.device)
+    _tile_sums_launch(qual, lengths, order, out, offset)
+    host = out.cpu().numpy().astype(np.float32)
+    return np.asarray(unique_tiles).astype(np.int64), host[0], host[1]
+
+
+def per_tile_qual_sums(tiles: np.ndarray, qual, lengths, offset: int,
+                       unique_tiles: Optional[np.ndarray] = None,
+                       n_records: Optional[int] = None
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One batch's per-tile per-position Phred sums and base counts.
+
+    tiles: int32[n] (host); qual u8[n, L] and lengths i32[n] as tensors
+    (the sums run on their device) or arrays (on the CPU).
+    Returns (unique_tiles i64[T], sums f32[T, L], counts f32[T, L]) with
+    T >= 1 rows (one zero row when no tile is known), as the reference
+    returns them. CPU tensors run `per_tile_qual_sums_torch`; CUDA tensors
+    run the kernel (counted in `per_tile_qual_sums.launches`) or raise."""
+    qual = torch.as_tensor(qual)
+    if qual.is_cuda:
+        return _per_tile_qual_sums_cuda(tiles, qual, lengths, offset,
+                                        unique_tiles, n_records)
+    if qual.device.type != "cpu":
+        raise ValueError("per_tile_qual_sums: unsupported device %s"
+                         % qual.device)
+    return per_tile_qual_sums_torch(tiles, qual, lengths, offset,
+                                    unique_tiles, n_records)
+
+
+per_tile_qual_sums.launches = 0
 
 
 class PerTileAccumulator:

@@ -17,14 +17,18 @@ three views off 16-byte alignment, 20 runs each, so that the tiles'
 look-back meets contention), a 256 MiB ragged chunk at 3,121,343 x 300
 and a 256 MiB uniform one at 150 columns; the merge kernel of
 csrc/merge.cu on MERGE_EDGE_CASES, MERGE_CARD_CASES and the first batch
-pair of the merge mates), then
+pair of the merge mates; the CLI ops' kernels of csrc/trim.cu, demux.cu,
+tiles.cu and kmer.cu on CLI_OP_EDGE_CASES, the first reads of the 1M-read
+file as the CLI pads them and a 32,768 x 1,024 batch), then
 drives the port's paths, each with the launch counts set to 0 just before
 it and read just after, and with no plain torch version of a host-route,
-device-parse or merge kernel (ops/nw.py's wavefronts, qc_stats_torch,
-adapter_content_torch, read_hashes_torch, raw_stream_qc_torch,
-newline_positions_torch, record_offsets_torch, gather_padded_torch,
-count_records_torch, merge_pairs_torch) allowed a CUDA tensor, in this
-process or in the ranks it spawns:
+device-parse, merge or CLI op kernel (ops/nw.py's wavefronts,
+qc_stats_torch, adapter_content_torch, read_hashes_torch,
+raw_stream_qc_torch, newline_positions_torch, record_offsets_torch,
+gather_padded_torch, count_records_torch, merge_pairs_torch, the trim
+modes' *_torch, demux_assign_torch, per_tile_qual_sums_torch,
+kmer_counts_torch) allowed a CUDA tensor, in this process or in the ranks
+it spawns:
 
 * QCModel(device="cuda").run_file_device over a 2 GiB uniform FASTQ file
   and a 1 GiB quality-binned one, each checked panel by panel against an
@@ -54,9 +58,14 @@ process or in the ranks it spawns:
   the generator;
 * the command line (python -m blazeseq_tpu_torch: stats, stats --device,
   trim in three modes, demux, merge, tiles) in-process on the card over
-  the 1M-read file and 250,000 read pairs, against the host twins (merge:
-  one merge_pairs launch a batch pair), and on 20,000-read prefixes
+  the 1M-read file and 250,000 read pairs, against the host twins (one
+  launch a batch of each command's kernel: trim's mode, demux_assign,
+  merge_pairs a batch pair, the tile sums), and on 20,000-read prefixes
   against the same commands on the CPU;
+* the analysis API as the reference's examples/analysis_panels.py drives
+  it (bwa_trim, then kmer_counts before and after) over the 1M-read file
+  in batches of 65,536, each batch's trim against bwa_trim_torch on the
+  CPU and its 4-mers before and after against a numpy oracle;
 * the mesh layer on torch.distributed. NCCL takes one rank a card, so a
   1-rank NCCL mesh runs in this process: QCModel(mesh=...).run_file with
   the options above, against that path's single-device report, and
@@ -117,6 +126,10 @@ KERNEL_QC_STATS_SOURCE = "blazeseq_tpu_torch/csrc/qc_stats.cu"
 KERNEL_ADAPTER_SOURCE = "blazeseq_tpu_torch/csrc/adapter.cu"
 KERNEL_HASH_SOURCE = "blazeseq_tpu_torch/csrc/dedup.cu"
 KERNEL_MERGE_SOURCE = "blazeseq_tpu_torch/csrc/merge.cu"
+KERNEL_TRIM_SOURCE = "blazeseq_tpu_torch/csrc/trim.cu"
+KERNEL_DEMUX_SOURCE = "blazeseq_tpu_torch/csrc/demux.cu"
+KERNEL_TILES_SOURCE = "blazeseq_tpu_torch/csrc/tiles.cu"
+KERNEL_KMER_SOURCE = "blazeseq_tpu_torch/csrc/kmer.cu"
 # the upstream nw_gpu example: 1M reads x 40 bp against a 40 bp reference
 NW_READS = 1_000_000
 NW_READ_LEN = 40
@@ -1228,6 +1241,327 @@ def merge_bound(len1, len2, L):
     compares = int(((hi * (hi + 1) - (lo - 1) * lo) // 2).sum())
     return bound(int(used.sum()) + 8 * n + 4 * n * L + 16 * n,
                  MERGE_OPS_PER_COMPARE * compares)
+
+
+# ------------------------------------------------ the CLI's device ops
+# Edge cases of the CLI's device ops (csrc/trim.cu, demux.cu, tiles.cu and
+# kmer.cu), shared with tests/test_torch_cli_kernels.py: each label names its
+# op, and cli_op_case makes its inputs from a seed. Every trim case runs the
+# TRIM_MODES whose window fits its width; every demux case each of its
+# max_mismatches; every kmer case each of its k.
+CLI_OP_EDGE_CASES = (
+    "trim: lengths 0, negative and over L",
+    "trim: bytes below the offset",
+    "trim: all-low rows",
+    "trim: bwa ties",
+    "trim: windows longer than the read",
+    "trim: L = 12",
+    "trim: L = 1",
+    "trim: offset 64",
+    "demux: N in barcodes and reads",
+    "demux: reads shorter than the barcode",
+    "demux: ties",
+    "demux: K = 1",
+    "demux: 384 barcodes of 32 bases",
+    "demux: odd width, lowercase and other bytes",
+    "kmer: k = 1..8",
+    "kmer: n_records as a tensor",
+    "kmer: lengths over L and negative",
+    "kmer: L = 7",
+    "tiles: grouped",
+    "tiles: shuffled",
+    "tiles: unknown tiles and n_records",
+    "tiles: no known tile")
+# the card-only ones: the CLI's batch shapes (trim and tiles take 4,096
+# reads padded to 256, demux 16,384 x 256), reads up to 1 kb, and each at
+# a view 1 and 13 bytes off 16-byte alignment
+CLI_OP_CARD_SHAPES = ((4096, 256), (16384, 256), (32768, 1024))
+CLI_OP_VIEW_OFFSETS = (0, 1, 13)
+TRIM_MODES = (
+    ("clip_ends", dict(leading=3, trailing=3)),
+    ("clip_ends", dict(leading=20, trailing=30)),
+    ("clip_ends", dict(leading=0, trailing=41)),
+    ("sliding_window_trim", dict(mean_q=15, window=4)),
+    ("sliding_window_trim", dict(mean_q=25, window=12)),
+    ("sliding_window_trim", dict(mean_q=20, window=1)),
+    ("bwa_trim", dict(threshold=20)),
+    ("bwa_trim", dict(threshold=0)),
+    ("bwa_trim", dict(threshold=35)))
+KMER_KS = tuple(range(1, 9))
+# the trim, tiles and kmer bounds' int32 operations a byte in length: the
+# Phred subtract, a compare and an add or select (kmer: the code, a shift,
+# an or and the run); demux's a word of a barcode: a compare, an and, a
+# popc and an add
+CLI_OPS_PER_BYTE = 3
+DEMUX_OPS_PER_WORD = 4
+
+
+def trim_modes(L):
+    """The TRIM_MODES a batch of width L takes (window <= L)."""
+    return tuple((fn, kw) for fn, kw in TRIM_MODES
+                 if kw.get("window", 1) <= L)
+
+
+def _qual_rows(rng, n, L, lo=33, hi=75):
+    return rng.integers(lo, hi, (n, L)).astype(np.uint8)
+
+
+def _bases(rng, shape, alphabet=b"ACGT"):
+    return rng.choice(np.frombuffer(alphabet, np.uint8), shape)
+
+
+def cli_op_case(label, seed):
+    """One case of CLI_OP_EDGE_CASES: (op, arrays, options). op is "trim"
+    (arrays qual, lengths; options offset), "demux" (seq, lengths;
+    barcodes, max_mismatches: a tuple), "kmer" (seq, lengths; n_records,
+    a tensor flag, ks) or "tiles" (tiles, qual, lengths; offset,
+    n_records). The bytes past a read are random."""
+    rng = np.random.default_rng([seed, 31, CLI_OP_EDGE_CASES.index(label)])
+    op = label.split(":")[0]
+    if op == "trim":
+        n, L, off = 96, 80, 33
+        if label.endswith("L = 12"):
+            L = 12
+        elif label.endswith("L = 1"):
+            L = 1
+        qual = _qual_rows(rng, n, L)
+        lens = rng.integers(0, L + 1, n)
+        if label == "trim: lengths 0, negative and over L":
+            lens[:8] = 0
+            lens[8:16] = -rng.integers(1, 40, 8)
+            lens[16:24] = L + rng.integers(1, 50, 8)
+            lens[24:28] = L
+        elif label == "trim: bytes below the offset":
+            low = rng.random((n, L)) < 0.3
+            qual[low] = rng.integers(0, 33, int(low.sum()))
+        elif label == "trim: all-low rows":
+            qual[::2] = rng.integers(28, 36, (n // 2, L))
+            qual[1::4] = 33
+            lens[::3] = L
+        elif label == "trim: bwa ties":
+            # Phred 10 and 30 only: with threshold 20 the running sums step
+            # by +-10, so equal maxima at several k are the rule
+            qual = np.where(rng.random((n, L)) < 0.5, 43, 63).astype(np.uint8)
+            qual[::4, ::2] = 43
+            qual[::4, 1::2] = 63
+        elif label == "trim: windows longer than the read":
+            lens = rng.integers(0, 14, n)
+        elif label == "trim: offset 64":
+            off = 64
+            qual = _qual_rows(rng, n, L, 40, 110)
+        return "trim", dict(qual=qual, lengths=lens.astype(np.int32)), dict(
+            offset=off)
+    if op == "demux":
+        barcodes = [b"ACGTAC", b"TTGGCA", b"ACGTAN", b"GGGGGG", b"NNCATG"]
+        n, L = 200, 64
+        mms = (0, 1, 2, 7)
+        if label == "demux: 384 barcodes of 32 bases":
+            barcodes = [bytes(_bases(rng, 32)) for _ in range(384)]
+            barcodes[7] = barcodes[3][:30] + b"NN"
+        elif label == "demux: K = 1":
+            barcodes = [b"GATTACAG"]
+            mms = (0, 1, 9, 10)
+        elif label == "demux: odd width, lowercase and other bytes":
+            barcodes = [b"acgtacgtA", b"TTGGCCAAn", b"GATTACAG-"]
+            L = 37
+        bl = len(barcodes[0])
+        seq = _bases(rng, (n, L), b"ACGTNacgtn")
+        lens = rng.integers(bl, L + 1, n)
+        # most reads start with a barcode, some with errors
+        pick = rng.integers(0, len(barcodes), n)
+        for i in range(n):
+            if i % 5:
+                bc = np.frombuffer(barcodes[pick[i]].upper().replace(
+                    b"N", b"A"), np.uint8).copy()
+                for _ in range(rng.integers(0, 3)):
+                    bc[rng.integers(0, bl)] = _bases(rng, 1, b"ACGTNacgt")[0]
+                seq[i, :bl] = bc
+        if label == "demux: reads shorter than the barcode":
+            lens[::2] = rng.integers(-3, bl, (n + 1) // 2)
+        elif label == "demux: ties":
+            # reads one base from two barcodes at once
+            seq[::2, :bl] = np.frombuffer(b"ACGTGC", np.uint8)
+        elif label == "demux: odd width, lowercase and other bytes":
+            seq[::7, 3] = ord("-")
+            seq[1::7] = _bases(rng, (len(seq[1::7]), L), b"acgtn-\x00\xff")
+        return "demux", dict(seq=seq, lengths=lens.astype(np.int32)), dict(
+            barcodes=barcodes, max_mismatches=mms)
+    if op == "kmer":
+        n, L = 48, 40
+        if label == "kmer: L = 7":
+            L = 7
+        seq = _bases(rng, (n, L), b"ACGTacgt" * 3 + b"Nn-X")
+        lens = rng.integers(0, L + 1, n)
+        n_records, ks = 41, (2, 5, 8)
+        if label == "kmer: k = 1..8":
+            n_records, ks = None, KMER_KS
+        elif label == "kmer: lengths over L and negative":
+            lens[::5] = L + rng.integers(1, 9, len(lens[::5]))
+            lens[1::5] = -rng.integers(1, 9, len(lens[1::5]))
+            n_records = n
+        elif label == "kmer: L = 7":
+            ks = (1, 7, 8)
+        return "kmer", dict(seq=seq, lengths=lens.astype(np.int32)), dict(
+            n_records=n_records, tensor=label.endswith("tensor"), ks=ks)
+    if op == "tiles":
+        n, L, n_records = 160, 72, None
+        tiles = np.repeat(np.array([1101, 1102, 2101, 2102], np.int32),
+                          n // 4)
+        if label == "tiles: shuffled":
+            tiles = rng.permutation(tiles)
+        elif label == "tiles: unknown tiles and n_records":
+            tiles[rng.integers(0, n, 30)] = -1
+            n_records = 123
+        elif label == "tiles: no known tile":
+            tiles[:] = -1
+        qual = _qual_rows(rng, n, L, 0, 120)
+        lens = rng.integers(-5, L + 20, n)
+        return "tiles", dict(tiles=tiles, qual=qual,
+                             lengths=lens.astype(np.int32)), dict(
+            offset=33, n_records=n_records)
+    raise ValueError(label)
+
+
+def cli_op_card_batch(op, n, L, seed):
+    """A batch of the CLI ops' card shapes: arrays as cli_op_case gives
+    them, reads of L / 2 to L bases (some longer than L, some empty)."""
+    rng = np.random.default_rng([seed, 37, n, L])
+    lens = rng.integers(L // 2, L + 1, n)
+    lens[::97] = 0
+    lens[1::89] = L + 10
+    qual = _qual_rows(rng, n, L, 33, 75)
+    if op == "trim":
+        return dict(qual=qual, lengths=lens.astype(np.int32))
+    seq = _bases(rng, (n, L), b"ACGT" * 8 + b"N")
+    if op == "tiles":
+        tiles = np.repeat(np.array(TILES, np.int32), -(-n // len(TILES)))[:n]
+        return dict(tiles=tiles, qual=qual, lengths=lens.astype(np.int32))
+    if op == "demux":
+        bl = len(DEMUX_BARCODES[0])
+        pick = rng.integers(0, len(DEMUX_BARCODES), n)
+        seq[:, :bl] = np.frombuffer(b"".join(DEMUX_BARCODES),
+                                    np.uint8).reshape(-1, bl)[pick]
+        seq[::3, rng.integers(0, bl)] = ord("A")
+    return dict(seq=seq, lengths=lens.astype(np.int32))
+
+
+def cli_op_calls(op, d, kw):
+    """The calls a case of op makes on `d` (its arrays as tensors on one
+    device; tiles stays numpy), each (name, the dispatching op, its plain
+    torch version) as functions of no argument that return a tuple."""
+    import functools
+
+    import torch
+
+    from blazeseq_tpu_torch.ops import demux, kmer, tiles, trim
+
+    def pair(mod, fn, *a, **k):
+        return (functools.partial(getattr(mod, fn), *a, **k),
+                functools.partial(getattr(mod, fn + "_torch"), *a, **k))
+
+    def as_tuple(f):
+        return lambda: (lambda r: r if isinstance(r, tuple) else (r,))(f())
+
+    calls = []
+    if op == "trim":
+        for fn, fkw in trim_modes(d["qual"].shape[1]):
+            name = "%s(%s)" % (fn, ", ".join("%s=%s" % x for x in
+                                             fkw.items()))
+            calls.append((name,) + pair(trim, fn, d["qual"], d["lengths"],
+                                        kw["offset"], **fkw))
+    elif op == "demux":
+        for mm in kw["max_mismatches"]:
+            calls.append(("demux_assign(max_mismatches=%d)" % mm,)
+                         + pair(demux, "demux_assign", d["seq"],
+                                d["lengths"], kw["barcodes"], mm))
+    elif op == "kmer":
+        nr = kw["n_records"]
+        if kw.get("tensor"):
+            nr = torch.tensor(nr, dtype=torch.int32, device=d["seq"].device)
+        for k in kw["ks"]:
+            calls.append(("kmer_counts(k=%d)" % k,)
+                         + pair(kmer, "kmer_counts", d["seq"], d["lengths"],
+                                nr, k=k))
+    elif op == "tiles":
+        calls.append(("per_tile_qual_sums",)
+                     + pair(tiles, "per_tile_qual_sums", d["tiles"],
+                            d["qual"], d["lengths"], kw["offset"],
+                            n_records=kw["n_records"]))
+    else:
+        raise ValueError(op)
+    return [(name, as_tuple(f), as_tuple(g)) for name, f, g in calls]
+
+
+def cli_op_tensors(arrays, device, view=0):
+    """The case's arrays as tensors on `device` (tiles stays numpy); with
+    view > 0 the u8 rows are a contiguous view that starts `view` bytes
+    into a larger buffer."""
+    import torch
+
+    out = {}
+    for k, a in arrays.items():
+        if k == "tiles":
+            out[k] = a
+        elif a.dtype == np.uint8 and view:
+            buf = torch.zeros(a.size + view, dtype=torch.uint8, device=device)
+            out[k] = buf[view:].view(a.shape)
+            out[k].copy_(torch.from_numpy(a))
+        else:
+            out[k] = torch.from_numpy(a).to(device)
+    return out
+
+
+def same_leaves(got, want, label):
+    """Leaf-by-leaf equality of two results (tensors or numpy arrays):
+    shapes, dtypes and values; returns the largest |difference| (0)."""
+    import torch
+
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+    if len(got) != len(want):
+        raise AssertionError("%s: %d leaves, want %d"
+                             % (label, len(got), len(want)))
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = host(g), host(w)
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError("%s: leaf %d is %s %s, want %s %s"
+                                 % (label, i, g.dtype, g.shape, w.dtype,
+                                    w.shape))
+        if not np.array_equal(g, w):
+            d = np.abs(g.astype(np.float64) - w.astype(np.float64))
+            raise AssertionError("%s: leaf %d differs from its plain version "
+                                 "by up to %g" % (label, i, np.nanmax(d)))
+    return 0
+
+
+def cli_op_bound(op, arrays, **kw):
+    """bound() of one call of a CLI op on these arrays (numpy): each row's
+    bytes in length read once (demux: its first bl), the lengths (and
+    tiles' row map) read once, the outputs written once; CLI_OPS_PER_BYTE
+    int32 operations a byte in length, DEMUX_OPS_PER_WORD a barcode word a
+    read."""
+    lens = arrays["lengths"].astype(np.int64)
+    n = len(lens)
+    L = (arrays.get("qual") if "qual" in arrays else arrays["seq"]).shape[1]
+    used = np.clip(lens, 0, L)
+    if op == "demux":
+        bl = len(kw["barcodes"][0])
+        words = -(-bl // 4)
+        K = len(kw["barcodes"])
+        return bound(n * bl + 4 * n + 8 * n + 8 * K * words,
+                     DEMUX_OPS_PER_WORD * n * K * words)
+    if op == "tiles":
+        known = arrays["tiles"] >= 0
+        T = max(len(np.unique(arrays["tiles"][known])), 1)
+        b = int(used[known].sum())
+        return bound(b + 8 * n + 2 * 8 * T * L, CLI_OPS_PER_BYTE * b)
+    if op == "kmer":
+        b = int(used.sum())
+        return bound(b + 4 * n + 4 * 4 ** kw["k"], CLI_OPS_PER_BYTE * b)
+    b = int(used.sum())  # trim
+    out = 8 if kw.get("mode") == "clip_ends" else 4
+    return bound(b + 4 * n + out * n, CLI_OPS_PER_BYTE * b)
 
 
 def check_report(rep, oracle, width):
@@ -3271,6 +3605,226 @@ def phase_kernel_merge(seed, files):
     return rec
 
 
+def cli_file_batch(path, n):
+    """The first n reads of a FASTQ file as the CLI pads them (to_padded:
+    the batch's longest read rounded up to 128) on the card, with their
+    tile numbers: (tiles, seq, qual, lengths, n_records)."""
+    from blazeseq_tpu_torch.fastq.batch import padded_to_device
+    from blazeseq_tpu_torch.fastq.parser import FastqParser
+    from blazeseq_tpu_torch.io.readers import open_reader
+    from blazeseq_tpu_torch.ops.tiles import parse_illumina_tiles
+
+    batch = FastqParser(open_reader(path)).next_batch(n)
+    batch._finalize()
+    pb = padded_to_device(batch.to_padded(), "cuda")
+    return (parse_illumina_tiles(batch._id_bytes, batch._id_ends), pb.seq,
+            pb.qual, pb.lengths, pb.n_records)
+
+
+# the CLI's options of each call timed: trim's defaults in each mode,
+# demux --mismatches 1 on the planted barcodes, the tiles panel; kmer at
+# the analysis example's k = 4
+CLI_OP_TIMED = (
+    ("trim", "sliding_window_trim", dict(mean_q=15, window=4)),
+    ("trim", "bwa_trim", dict(threshold=20)),
+    ("trim", "clip_ends", dict(leading=3, trailing=3)),
+    ("demux", "demux_assign", dict(barcodes=DEMUX_BARCODES,
+                                   max_mismatches=1)),
+    ("tiles", "per_tile_qual_sums", dict(offset=33)),
+    ("kmer", "kmer_counts", dict(k=4)))
+
+
+def _timed_cli_op(op, fn, kw, d):
+    """(the op's call, its plain version's or None, bound, the whole call or
+    None) of one CLI_OP_TIMED entry on the tensors d. The tiles kernel is
+    timed as its zero fill and launch on a row order already on the card
+    (the whole call also groups the rows by tile, uploads the order,
+    copies the sums back and converts them on the host). In a tree without the kernels (no
+    `*_torch`), the op is its torch ops and there is no plain version."""
+    import functools
+
+    import torch
+
+    from blazeseq_tpu_torch.ops import demux, kmer, tiles, trim
+
+    mod = dict(trim=trim, demux=demux, tiles=tiles, kmer=kmer)[op]
+    host = {k: (v if k == "tiles" else v.cpu().numpy()) for k, v in d.items()}
+    kw = dict(kw)
+    if op == "trim":
+        args = (d["qual"], d["lengths"], 33)
+        b = cli_op_bound(op, host, mode=fn)
+    elif op == "demux":
+        args = (d["seq"], d["lengths"], kw.pop("barcodes"),
+                kw.pop("max_mismatches"))
+        b = cli_op_bound(op, host, barcodes=DEMUX_BARCODES)
+    elif op == "kmer":
+        args = (d["seq"], d["lengths"])
+        b = cli_op_bound(op, host, k=kw["k"])
+    else:
+        args = (d["tiles"], d["qual"], d["lengths"], kw.pop("offset"))
+        b = cli_op_bound(op, host)
+    call = functools.partial(getattr(mod, fn), *args, **kw)
+    plain = getattr(mod, fn + "_torch", None)
+    plain = plain and functools.partial(plain, *args, **kw)
+    if op != "tiles" or not hasattr(tiles, "_tile_sums_launch"):
+        return call, plain, b, None
+    _, dst, rows = tiles._tile_rows(d["tiles"], len(d["tiles"]), None, None)
+    order = torch.from_numpy(tiles._tile_order(dst, rows)).cuda()
+    L = d["qual"].shape[1]
+
+    def launch():
+        out = torch.zeros((2, rows, L), dtype=torch.int64, device="cuda")
+        tiles._tile_sums_launch(d["qual"], d["lengths"], order, out, 33)
+    return launch, plain, b, call
+
+
+def phase_kernel_cli_ops(seed, files):
+    """csrc/trim.cu, demux.cu, tiles.cu and kmer.cu against their plain
+    torch versions on the card, every leaf exact: CLI_OP_EDGE_CASES (at
+    views 0 and 1 byte off alignment), the first 4,096 reads of the
+    1M-read file as the CLI pads them (150 bp to 256 columns; demux also
+    its own 16,384-read batch) and a 32,768 x 1,024 batch; each call of
+    CLI_OP_TIMED timed at both shapes (demux at 16,384 x 256 and 32,768 x
+    1,024) beside its plain version and its bound. Returns a record a
+    kernel source (trim: its three modes together, each under `modes`)."""
+    import torch
+
+    cases = 0
+    for label in CLI_OP_EDGE_CASES:
+        op, arrays, kw = cli_op_case(label, seed)
+        for view in (0, 1):
+            d = cli_op_tensors(arrays, "cuda", view)
+            for name, f, plain in cli_op_calls(op, d, kw):
+                same_leaves(f(), plain(), "%s, %s, view %d"
+                            % (label, name, view))
+                cases += 1
+    head = cli_file_batch(files["align"], 4096)
+    head_dm = cli_file_batch(files["align"], 16384)
+    shapes = {}
+    for op in ("trim", "demux", "tiles", "kmer"):
+        src = head_dm if op == "demux" else head
+        shapes[op] = [dict(zip(("tiles", "seq", "qual", "lengths"), src[:4]))]
+        big = cli_op_card_batch(op, 32768, 1024, seed)
+        shapes[op].append(cli_op_tensors(big, "cuda"))
+    recs = {}
+    for op, fn, kw in CLI_OP_TIMED:
+        for d in shapes[op]:
+            call, plain, b, whole = _timed_cli_op(op, fn, kw, d)
+            n, L = (d["qual"] if "qual" in d else d["seq"]).shape
+            err = same_leaves((whole or call)(), plain(),
+                              "%s on %dx%d" % (fn, n, L))
+            cases += 1
+            rec = dict(shape="%dx%d" % (n, L), ms=cuda_ms(call),
+                       plain_ms=cuda_ms(plain, inner=1, trials=3),
+                       max_abs_err=err, **b)
+            if whole is not None:
+                rec["call_ms"] = cuda_ms(whole, inner=3, trials=3)
+            recs.setdefault(fn, []).append(rec)
+            log("%s %s: kernel %.4f ms, plain %.4f ms, bound %.5f ms (%s)%s"
+                % (fn, rec["shape"], rec["ms"], rec["plain_ms"],
+                   rec["bound_ms"], rec["bound_by"],
+                   ", whole call %.4f ms" % rec["call_ms"]
+                   if whole is not None else ""))
+    torch.cuda.synchronize()
+    log("CLI op kernels == plain on %d calls" % cases)
+
+    def merged(fns):
+        # the first shape's record summed over the calls, every record kept;
+        # the tiles kernel's `ms` is its fill and launch alone, while
+        # `plain_ms` is the plain version's whole call: its `call_ms`, the
+        # kernel's whole call, is the time of the same scope
+        first = [recs[f][0] for f in fns]
+        out = dict(shape=first[0]["shape"], max_abs_err=0, cases=cases,
+                   **{k: sum(r[k] for r in first)
+                      for k in ("ms", "plain_ms", "bound_ms")})
+        if "call_ms" in first[0]:
+            out["call_ms"] = first[0]["call_ms"]
+        out["bound_by"] = first[0]["bound_by"]
+        out["modes" if len(fns) > 1 else "shapes"] = {f: recs[f] for f in fns}
+        return out
+
+    return dict(trim=merged(("sliding_window_trim", "bwa_trim",
+                             "clip_ends")),
+                demux_assign=merged(("demux_assign",)),
+                per_tile_qual_sums=merged(("per_tile_qual_sums",)),
+                kmer_counts=merged(("kmer_counts",)))
+
+
+def phase_analysis(files):
+    """The analysis API as the reference's examples/analysis_panels.py
+    drives it, over the 1M-read file in padded batches of 65,536 reads:
+    bwa_trim, then kmer_counts (k = 4) before and after the trim with the
+    batch's record count as a tensor on the card. Each batch's trimmed
+    lengths must equal bwa_trim_torch's on CPU copies of its rows, and
+    its counts before and after the trim a numpy oracle of its padded
+    rows with those lengths; no count may rise with the trim."""
+    import torch
+
+    import blazeseq_tpu_torch as bt
+    from blazeseq_tpu_torch.fastq.batch import padded_to_device
+    from blazeseq_tpu_torch.io.readers import open_reader
+    from blazeseq_tpu_torch.ops import bwa_trim, kmer_counts, trim
+
+    lut = np.full(256, 4, np.int64)  # 0..3 for ACGTacgt, 4 otherwise
+    for v, c in enumerate(b"ACGT"):
+        lut[c] = lut[c | 0x20] = v
+
+    def oracle(seq, lens, k=4):
+        cls = lut[seq]
+        n, L = seq.shape
+        j = np.arange(L - k + 1)[None, :]
+        ok = j + k <= np.minimum(lens, L)[:, None]
+        code = np.zeros((n, L - k + 1), np.int64)
+        for t in range(k):
+            c = cls[:, t:L - k + 1 + t]
+            ok &= c < 4
+            code = code * 4 + c
+        return np.bincount(code[ok], minlength=4 ** k)
+
+    parser = bt.FastqParser(open_reader(files["align"]))
+    before = torch.zeros(256, dtype=torch.int64, device="cuda")
+    after = torch.zeros_like(before)
+    batches = reads = 0
+    t0 = time.perf_counter()
+    while True:
+        pb = parser.next_padded(1 << 16, max_len=256)
+        if pb is None or pb.n_records == 0:
+            break
+        d = padded_to_device(pb, "cuda")
+        nr = torch.tensor(pb.n_records, dtype=torch.int32, device="cuda")
+        trimmed = bwa_trim(d.qual, d.lengths, 33, 20)
+        kb = kmer_counts(d.seq, d.lengths, nr, k=4)
+        ka = kmer_counts(d.seq, trimmed, nr, k=4)
+        same_leaves((trimmed,), (trim.bwa_trim_torch(
+            torch.from_numpy(np.ascontiguousarray(pb.qual)),
+            torch.from_numpy(np.asarray(pb.lengths, np.int32)), 33, 20),),
+            "analysis: batch %d's bwa_trim" % batches)
+        rows = slice(0, pb.n_records)
+        seq = np.asarray(pb.seq)[rows]
+        if not np.array_equal(kb.cpu().numpy(),
+                              oracle(seq, np.asarray(pb.lengths)[rows])):
+            raise AssertionError("analysis: batch %d's 4-mers differ from "
+                                 "the numpy oracle" % batches)
+        if not np.array_equal(ka.cpu().numpy(),
+                              oracle(seq, trimmed.cpu().numpy()[rows])):
+            raise AssertionError("analysis: batch %d's trimmed 4-mers differ "
+                                 "from the numpy oracle" % batches)
+        if bool((ka > kb).any()):
+            raise AssertionError("analysis: a 4-mer count rose with the "
+                                 "trim")
+        before += kb
+        after += ka
+        batches += 1
+        reads += pb.n_records
+    wall = time.perf_counter() - t0
+    if reads != ALIGN_READS:
+        raise AssertionError("analysis: %d reads" % reads)
+    log("analysis: %d reads in %d batches, 4-mer windows %d -> %d after "
+        "bwa_trim, %.3f s" % (reads, batches, int(before.sum()),
+                              int(after.sum()), wall))
+    return dict(reads=reads, batches=batches, wall_s=wall)
+
+
 def _cli(argv, device, out_dir):
     """Run the port's CLI in-process; returns its stdout (out_dir masked),
     its output files' bytes and its wall time."""
@@ -3405,29 +3959,39 @@ def _cli_twin_check(name, files, oracle, text, out_dir):
             raise AssertionError("cli tiles: %r, want %r" % (text, want))
 
 
-def phase_cli(files, oracle, tmp):
+# the records of a batch of each CLI command with a device op, and the
+# wrapper whose launches it counts (one launch a batch)
+CLI_BATCH_LAUNCHES = {"trim window": ("sliding_window_trim", 4096),
+                      "trim bwa": ("bwa_trim", 4096),
+                      "trim ends": ("clip_ends", 4096),
+                      "demux": ("demux_assign", 16384),
+                      "merge": ("merge_pairs", MERGE_BATCH),
+                      "tiles": ("per_tile_qual_sums", 4096)}
+
+
+def phase_cli(files, oracle, tmp, kernels):
     """python -m blazeseq_tpu_torch in-process with device="cuda": stats,
     stats --device, trim in three modes, demux --mismatches 1, merge and
     tiles on the 1M-read file (merge on MATE_PAIRS pairs), each checked
     against the host twins; then each on the 20,000-read (pair) prefix on
-    the card and on the CPU, stdout and output files byte-equal. The full
-    merge run makes one merge_pairs launch a batch pair."""
-    from blazeseq_tpu_torch.ops import merge
-
+    the card and on the CPU, stdout and output files byte-equal. On the
+    full file each command of CLI_BATCH_LAUNCHES makes one launch of its
+    kernel a batch (a batch pair for merge)."""
     times = {}
     for name, argv in CLI_COMMANDS:
         full = os.path.join(tmp, "cli_full")
         args = [a.format(out=full, **{"in": files["align"], "r1": files["r1"],
                                       "r2": files["r2"]}) for a in argv]
-        before = merge.merge_pairs.launches
+        before = {k: f.launches for k, f in kernels.items()}
         text, _, wall = _cli(args, "cuda", full)
         _cli_twin_check(name, files, oracle, text, full)
-        batch_pairs = -(-MATE_PAIRS // MERGE_BATCH)
-        if name == "merge" and (merge.merge_pairs.launches - before
-                                != batch_pairs):
-            raise AssertionError(
-                "cli merge: %d merge_pairs launches for %d batch pairs"
-                % (merge.merge_pairs.launches - before, batch_pairs))
+        if name in CLI_BATCH_LAUNCHES:
+            kernel, per = CLI_BATCH_LAUNCHES[name]
+            reads = MATE_PAIRS if name == "merge" else ALIGN_READS
+            got = kernels[kernel].launches - before[kernel]
+            if got != -(-reads // per):
+                raise AssertionError("cli %s: %d %s launches for %d batches"
+                                     % (name, got, kernel, -(-reads // per)))
         shutil.rmtree(full)
         outs = {}
         for device in ("cuda", "cpu"):
@@ -3832,23 +4396,30 @@ def phase_mesh_ranks(seed, files, oracle, keep, ragged, tmp, kernels):
 
 def _no_plain_on_card():
     """Wrap the plain torch versions of the kernels that the host route's
-    steps and the device-parse API dispatch to (ops/nw.py's wavefronts,
-    qc_stats_torch, adapter_content_torch, read_hashes_torch,
+    steps, the device-parse API and the CLI's ops dispatch to (ops/nw.py's
+    wavefronts, qc_stats_torch, adapter_content_torch, read_hashes_torch,
     raw_stream_qc_torch, newline_positions_torch, record_offsets_torch,
-    gather_padded_torch, count_records_torch and merge_pairs_torch) so
-    that a call with a CUDA tensor raises; returns a function that unwraps
-    them. The plain branches of read_hashes and of _read_hashes_into (the duplication
-    sample) both call read_hashes_torch by the module's name, so both are
-    covered."""
-    from blazeseq_tpu_torch.ops import (adapter, dedup, merge, nw, raw_stats,
-                                        scan, stats)
+    gather_padded_torch, count_records_torch, merge_pairs_torch, the three
+    trim modes' *_torch, demux_assign_torch, per_tile_qual_sums_torch and
+    kmer_counts_torch) so that a call with a CUDA tensor among its
+    positional arguments raises; returns a function that unwraps them.
+    The plain branches of read_hashes and of _read_hashes_into (the
+    duplication sample) both call read_hashes_torch by the module's name,
+    so both are covered."""
+    from blazeseq_tpu_torch.ops import (adapter, dedup, demux, kmer, merge, nw,
+                                        raw_stats, scan, stats, tiles, trim)
 
     saved = [(nw, n) for n in ["nw_scores_torch"] + [
         plain for _, plain, _ in nw.VARIANT_MODES.values()]]
     saved += [(stats, "qc_stats_torch"), (adapter, "adapter_content_torch"),
               (dedup, "read_hashes_torch"),
               (raw_stats, "raw_stream_qc_torch"),
-              (merge, "merge_pairs_torch")]
+              (merge, "merge_pairs_torch"), (demux, "demux_assign_torch"),
+              (tiles, "per_tile_qual_sums_torch"),
+              (kmer, "kmer_counts_torch")]
+    saved += [(trim, n + "_torch") for n in ("clip_ends",
+                                             "sliding_window_trim",
+                                             "bwa_trim")]
     saved += [(scan, n) for n in ("newline_positions_torch",
                                   "record_offsets_torch",
                                   "gather_padded_torch",
@@ -3856,11 +4427,11 @@ def _no_plain_on_card():
     saved = [(mod, n, getattr(mod, n)) for mod, n in saved]
 
     def guard(name, fn):
-        def wrapped(seq, *a, **k):
-            if seq.is_cuda:
+        def wrapped(*a, **k):
+            if any(getattr(x, "is_cuda", False) for x in a):
                 raise AssertionError("%s, a plain torch version, ran on the "
                                      "card" % name)
-            return fn(seq, *a, **k)
+            return fn(*a, **k)
         return wrapped
 
     for mod, name, fn in saved:
@@ -3899,6 +4470,8 @@ def _kernel_fns():
     """The wrapper of every kernel, by name; each counts its launches."""
     from blazeseq_tpu_torch.ops.adapter import adapter_content
     from blazeseq_tpu_torch.ops.dedup import read_hashes
+    from blazeseq_tpu_torch.ops.demux import demux_assign
+    from blazeseq_tpu_torch.ops.kmer import kmer_counts
     from blazeseq_tpu_torch.ops.merge import merge_pairs
     from blazeseq_tpu_torch.ops.nw import nw_scores, nw_variant_scores
     from blazeseq_tpu_torch.ops.ragged_qc import ragged_qc
@@ -3909,6 +4482,9 @@ def _kernel_fns():
                                              record_offsets_device,
                                              structural_bitmaps)
     from blazeseq_tpu_torch.ops.stats import qc_stats
+    from blazeseq_tpu_torch.ops.tiles import per_tile_qual_sums
+    from blazeseq_tpu_torch.ops.trim import (bwa_trim, clip_ends,
+                                             sliding_window_trim)
     from blazeseq_tpu_torch.ops.uniform_qc import uniform_qc
     from blazeseq_tpu_torch.ops.validate import validate_decode
 
@@ -3921,7 +4497,11 @@ def _kernel_fns():
                 newline_positions=newline_positions_device,
                 record_offsets=record_offsets_device,
                 gather_padded=gather_padded_device,
-                count_records=count_records_device, merge_pairs=merge_pairs)
+                count_records=count_records_device, merge_pairs=merge_pairs,
+                clip_ends=clip_ends, sliding_window_trim=sliding_window_trim,
+                bwa_trim=bwa_trim, demux_assign=demux_assign,
+                per_tile_qual_sums=per_tile_qual_sums,
+                kmer_counts=kmer_counts)
 
 
 def main(argv=None):
@@ -3987,8 +4567,12 @@ def main(argv=None):
          lambda: phase_device_parse(args.seed, ragged()),
          ("structural_bitmaps", "raw_stream_qc", "newline_positions",
           "record_offsets", "gather_padded", "count_records")),
-        ("cli", lambda: phase_cli(*align["corpus"], tmp),
-         ("uniform_qc", "validate_decode", "qc_stats", "merge_pairs")),
+        ("cli", lambda: phase_cli(*align["corpus"], tmp, kernels),
+         ("uniform_qc", "validate_decode", "qc_stats", "merge_pairs",
+          "clip_ends", "sliding_window_trim", "bwa_trim", "demux_assign",
+          "per_tile_qual_sums")),
+        ("analysis", lambda: phase_analysis(align["corpus"][0]),
+         ("bwa_trim", "kmer_counts")),
         ("mesh(nccl, 1 rank)",
          lambda: phase_mesh_nccl(args.seed, align["corpus"][0], align,
                                  kernels),
@@ -4008,6 +4592,8 @@ def main(argv=None):
         torch.cuda.synchronize()
         align["corpus"] = make_align_corpus(args.seed, tmp)
         kmerge = phase_kernel_merge(args.seed, align["corpus"][0])
+        torch.cuda.synchronize()
+        kcli = phase_kernel_cli_ops(args.seed, align["corpus"][0])
         torch.cuda.synchronize()
         for path_name, fn, needed in paths:
             e2e[path_name], got = run_path(path_name, fn, kernels)
@@ -4038,7 +4624,7 @@ def main(argv=None):
     log("device-parse kernels:", json.dumps(kparse_notes))
     log("end to end:", json.dumps(e2e))
     log("total %.1f s" % (time.perf_counter() - t_start))
-    # no single PyTorch call computes any of the fifteen functions, so
+    # no single PyTorch call computes any of the nineteen functions, so
     # none has a library time; kernel A has one record per shape of
     # KERNEL_A_SHAPES. The ragged, the alignment variant and the three
     # padded-batch panel kernels replace XLA code (no Pallas kernel): their
@@ -4047,7 +4633,11 @@ def main(argv=None):
     # kernel's ms, plain_ms and bound are its five modes' calls together at
     # the example's shape, each mode's under `modes`. The device-parse
     # kernels replace XLA code of the reference's raw_stats.py and scan.py,
-    # and the merge kernel the reference's merge_pairs (XLA: a lax.scan)
+    # and the merge kernel the reference's merge_pairs (XLA: a lax.scan).
+    # The CLI ops' four kernels replace the reference's XLA code of trim.py
+    # (three modes: their calls together at 4,096 x 256, each mode under
+    # `modes`), demux.py, tiles.py and kmer.py; each holds its records at
+    # both timed shapes
     print(json.dumps({"kernels": [
         dict(name="uniform_qc", route="cuda", source=KERNEL_B_SOURCE,
              replaces="blazeseq_tpu/ops/fused_qc.py:205",
@@ -4090,6 +4680,26 @@ def main(argv=None):
         dict(name="merge_pairs", route="cuda", source=KERNEL_MERGE_SOURCE,
              replaces="blazeseq_tpu/ops/merge.py:59-146",
              launches=launches["merge_pairs"], library_ms=None, **kmerge),
+        dict(name="trim", route="cuda", source=KERNEL_TRIM_SOURCE,
+             replaces="blazeseq_tpu/ops/trim.py:43-62,76-95,106-126",
+             launches=sum(launches[k] for k in ("sliding_window_trim",
+                                                "bwa_trim", "clip_ends")),
+             launches_by_mode={k: launches[k] for k in (
+                 "sliding_window_trim", "bwa_trim", "clip_ends")},
+             library_ms=None, **kcli["trim"]),
+        dict(name="demux_assign", route="cuda", source=KERNEL_DEMUX_SOURCE,
+             replaces="blazeseq_tpu/ops/demux.py:38-54",
+             launches=launches["demux_assign"], library_ms=None,
+             **kcli["demux_assign"]),
+        dict(name="per_tile_qual_sums", route="cuda",
+             source=KERNEL_TILES_SOURCE,
+             replaces="blazeseq_tpu/ops/tiles.py:50-56,59-95",
+             launches=launches["per_tile_qual_sums"], library_ms=None,
+             **kcli["per_tile_qual_sums"]),
+        dict(name="kmer_counts", route="cuda", source=KERNEL_KMER_SOURCE,
+             replaces="blazeseq_tpu/ops/kmer.py:30-63",
+             launches=launches["kmer_counts"], library_ms=None,
+             **kcli["kmer_counts"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

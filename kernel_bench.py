@@ -3,7 +3,7 @@ source tree or several in turn.
 
     python3 kernel_bench.py [--tree DIR ...] [--seed N] [--ragged-path]
                             [--sweep]
-                            [--only device_parse|merge|merge_kernel]
+                            [--only device_parse|merge|merge_kernel|cli_ops]
 
 Each DIR (default: this script's directory) holds a `blazeseq_tpu_torch`
 package; its kernels are built from its own sources and timed in a fresh
@@ -63,11 +63,19 @@ compare two commits on one card). Shapes:
   (chip_smoke.MERGE_CARD_CASES; csrc/merge.cu, or a tree's torch loop)
   with their bounds, the profiler's CUDA kernel launches
   of one `merge` batch pair, `FastqBatch.to_padded`'s host ms on 4,096 x
-  150 bp reads, the `merge`, `trim --mode bwa` and `tiles` walls over
-  chip_smoke.py's 250,000 pairs and 1M reads (with the sha256 of the
-  merge and trim outputs, to hold trees against each other), and the
-  launches of one call of each other CLI device op (trim's three modes,
-  kmer_counts, the per-tile sums, demux_assign) on a 4,096 x 256 batch;
+  150 bp reads, the `merge` wall over chip_smoke.py's 250,000 pairs (with
+  the sha256 of its output, to hold trees against each other) and the
+  host ms of each step of a batch pair;
+* the CLI's other device ops (`cli_ops`; `--only cli_ops` times this
+  section alone): each call of chip_smoke.CLI_OP_TIMED (trim in its three
+  modes, demux_assign, the per-tile sums, kmer_counts at k = 4) at the
+  CLI's 4,096 x 256 (demux 16,384 x 256) batch of chip_smoke.py's 1M
+  reads and at 32,768 x 1,024, card alone with its bound (the tiles
+  kernel as its fill and launch, its whole call beside it), checked equal
+  to its plain version where the tree has one; the launches of one call
+  of each (as in `merge`); the walls of `trim` in three modes, `demux` and
+  `tiles` on the 1M reads, twice each, with the sha256 of each command's
+  stdout and output files;
 * the CUDA kernel launches of one `run_file(align_to, adapters,
   duplicates, quartiles)` batch, from torch.profiler: the launches of
   runs over 1 and over 3 padded batches of chip_smoke's planted corpus,
@@ -189,6 +197,9 @@ def _one_tree(tree, seed, ragged_path=False, sweep=False, only=None):
         return out
     if only in ("merge", "merge_kernel"):
         out["merge"] = _merge(cs, seed, kernel_only=only == "merge_kernel")
+        return out
+    if only == "cli_ops":
+        out["cli_ops"] = _cli_ops(cs, seed)
         return out
     rng = np.random.default_rng([seed, 3])
     acgt = np.frombuffer(b"ACGT", np.uint8)
@@ -640,22 +651,24 @@ def _profiled(fn):
 
 
 def _cli_run(argv):
-    """The port's CLI in this process on the card, its stdout dropped;
-    the wall in seconds."""
+    """The port's CLI in this process on the card: (the wall in seconds,
+    its stdout)."""
     import contextlib
+    import io
     import time
 
     import torch
 
     from blazeseq_tpu_torch.__main__ import main as cli_main
 
+    buf = io.StringIO()
     t0 = time.perf_counter()
-    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+    with contextlib.redirect_stdout(buf):
         rc = cli_main(argv, device="cuda")
     torch.cuda.synchronize()
     if rc != 0:
         raise AssertionError("cli %s: exit %d" % (argv[0], rc))
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0, buf.getvalue()
 
 
 def _merge_split(cs, r1, r2, repeats=10):
@@ -734,21 +747,18 @@ def _merge(cs, seed, kernel_only=False):
     (with kernel_only, nothing else); the profiler's CUDA kernel launches
     of one merge batch pair (the command over 1 and 3 batch pairs, their
     difference over 2); to_padded's host ms
-    on 4,096 x 150 bp reads; the merge, trim (bwa) and tiles walls over
-    chip_smoke.py's 250,000 pairs and 1M reads, with the sha256 of the
-    merge and trim outputs; the host ms of each step of a merge batch pair
-    (_merge_split); and the launches one call of each other CLI device op
-    makes on a 4,096 x 256 batch of those reads."""
-    import hashlib
+    on 4,096 x 150 bp reads; the merge wall over chip_smoke.py's 250,000
+    pairs, with the sha256 of its stdout and output (_cli_hashed); and the
+    host ms of each step of a merge batch pair (_merge_split). The other
+    CLI commands are `cli_ops`'."""
     import statistics
     import time
 
     import torch
 
-    from blazeseq_tpu_torch.fastq.batch import padded_to_device
     from blazeseq_tpu_torch.fastq.parser import FastqParser
     from blazeseq_tpu_torch.io.readers import open_reader
-    from blazeseq_tpu_torch.ops import demux, kmer, merge, tiles, trim
+    from blazeseq_tpu_torch.ops import merge
 
     out = {}
     for label in MERGE_SHAPES:
@@ -790,46 +800,117 @@ def _merge(cs, seed, kernel_only=False):
         out["to_padded_host_ms"] = dict(
             reads=b.num_records(), read_len=cs.READ_LEN,
             median=statistics.median(times), min=min(times))
-        r1, r2, reads = (os.path.join(tmp, x) for x in (
-            "r1.fastq", "r2.fastq", "reads.fastq"))
+        r1, r2 = (os.path.join(tmp, x) for x in ("r1.fastq", "r2.fastq"))
         cs.write_mates(r1, r2, cs.MATE_PAIRS, seed)
-        cs.write_corpus(reads, cs.ALIGN_READS, seed + 17, planted=True)
-        walls = {}
-        for name, argv, res in (
-                ("merge", ["merge", "--out", "{out}", r1, r2], "m.fastq"),
-                ("trim bwa", ["trim", "--mode", "bwa", "--out", "{out}",
-                              reads], "t.fastq"),
-                ("tiles", ["tiles", reads], None)):
-            path = os.path.join(tmp, res or "unused")
-            walls[name] = dict(wall_s=_cli_run(
-                [a.format(out=path) for a in argv]))
-            if res:
-                with open(path, "rb") as f:
-                    walls[name]["sha256"] = hashlib.sha256(
-                        f.read()).hexdigest()
-        out["cli_walls"] = walls
+        wall, sha = _cli_hashed(["merge", "--out", os.path.join(
+            tmp, "out", "m.fastq"), r1, r2], os.path.join(tmp, "out"))
+        out["cli_walls"] = {"merge": dict(wall_s=wall, sha256=sha)}
         out["merge_batch_pair_split_ms"] = _merge_split(cs, r1, r2)
-        batch = FastqParser(open_reader(reads)).next_batch(
-            cs.MERGE_BATCH)
-        batch._finalize()
-        pb = padded_to_device(batch.to_padded(), "cuda")
-        tl = tiles.parse_illumina_tiles(batch._id_bytes, batch._id_ends)
-        ops = dict(
-            trim_window=lambda: trim.sliding_window_trim(
-                pb.qual, pb.lengths, 33, 15, window=4),
-            trim_bwa=lambda: trim.bwa_trim(pb.qual, pb.lengths, 33, 20),
-            trim_ends=lambda: trim.clip_ends(pb.qual, pb.lengths, 33),
-            kmer=lambda: kmer.kmer_counts(pb.seq, pb.lengths, k=4),
-            tiles=lambda: tiles.PerTileAccumulator().add_batch(
-                tl, pb.qual, pb.lengths, 33, n_records=pb.n_records),
-            demux=lambda: demux.demux_assign(pb.seq, pb.lengths,
-                                             cs.DEMUX_BARCODES, 1))
-        launches = {}
-        for name, fn in ops.items():
-            fn()
-            k, c, names = _profiled(fn)
-            launches[name] = dict(kernels=k, copies=c, by_name=dict(names))
-        out["cli_op_launches_%dx%d" % tuple(pb.seq.shape)] = launches
+    return out
+
+
+def _cli_op_launches(cs, reads):
+    """torch.profiler's CUDA kernel launches and copies of one call of each
+    CLI device op (trim's three modes, kmer_counts, the per-tile sums,
+    demux_assign) on the first 4,096 reads of `reads` as the CLI pads them
+    (to 256 columns for 150 bp reads)."""
+    from blazeseq_tpu_torch.ops import demux, kmer, tiles, trim
+
+    tl, seq, qual, lengths, n_records = cs.cli_file_batch(reads, 4096)
+    ops = dict(
+        trim_window=lambda: trim.sliding_window_trim(qual, lengths, 33, 15,
+                                                     window=4),
+        trim_bwa=lambda: trim.bwa_trim(qual, lengths, 33, 20),
+        trim_ends=lambda: trim.clip_ends(qual, lengths, 33),
+        kmer=lambda: kmer.kmer_counts(seq, lengths, k=4),
+        tiles=lambda: tiles.PerTileAccumulator().add_batch(
+            tl, qual, lengths, 33, n_records=n_records),
+        demux=lambda: demux.demux_assign(seq, lengths, cs.DEMUX_BARCODES, 1))
+    launches = {}
+    for name, fn in ops.items():
+        fn()
+        k, c, names = _profiled(fn)
+        launches[name] = dict(kernels=k, copies=c, by_name=dict(names))
+    return launches
+
+
+# the CLI commands whose walls --only cli_ops takes (chip_smoke.CLI_COMMANDS)
+CLI_OP_COMMANDS = ("trim window", "trim bwa", "trim ends", "demux", "tiles")
+
+
+def _cli_hashed(argv, out_dir):
+    """_cli_run with out_dir made for the outputs: (the wall in seconds,
+    the sha256 of its stdout, with out_dir and the directory that holds it
+    masked, and of every output file, by name)."""
+    import hashlib
+
+    os.makedirs(out_dir, exist_ok=True)
+    wall, text = _cli_run(argv)
+    text = text.replace(out_dir, "{out}")
+    h = hashlib.sha256(text.replace(os.path.dirname(out_dir),
+                                    "{tmp}").encode())
+    for root, _, names in sorted(os.walk(out_dir)):
+        for name in sorted(names):
+            with open(os.path.join(root, name), "rb") as f:
+                h.update(name.encode() + b"\0" + f.read())
+    return wall, h.hexdigest()
+
+
+def _cli_ops(cs, seed):
+    """The CLI's device ops: each call of chip_smoke.CLI_OP_TIMED on the
+    first reads of chip_smoke's 1M x 150 bp file as the CLI pads them
+    (4,096 x 256; demux 16,384 x 256) and on a 32,768 x 1,024 batch, card
+    alone and with launches, beside its bound and (where the tree has the
+    kernels) checked equal to its plain version, whose time is beside it;
+    the launches of one call of each op (_cli_op_launches); and the walls
+    of trim (three modes), demux and tiles on the file, twice each, with
+    the sha256 of each command's stdout and output files."""
+    import shutil
+
+    with tempfile.TemporaryDirectory() as tmp:
+        reads = os.path.join(tmp, "reads.fastq")
+        cs.write_corpus(reads, cs.ALIGN_READS, seed + 17, planted=True)
+        head = cs.cli_file_batch(reads, 4096)
+        head_dm = cs.cli_file_batch(reads, 16384)
+        out = dict(kernels={})
+        for op, fn, kw in cs.CLI_OP_TIMED:
+            src = head_dm if op == "demux" else head
+            for d in (dict(zip(("tiles", "seq", "qual", "lengths"),
+                               src[:4])),
+                      cs.cli_op_tensors(cs.cli_op_card_batch(op, 32768, 1024,
+                                                             seed), "cuda")):
+                call, plain, b, whole = cs._timed_cli_op(op, fn, kw, d)
+                n, L = (d["qual"] if "qual" in d else d["seq"]).shape
+                rec = dict(_times(call), **b)
+                if plain is not None:
+                    cs.same_leaves((lambda r: r if isinstance(r, tuple)
+                                    else (r,))((whole or call)()),
+                                   (lambda r: r if isinstance(r, tuple)
+                                    else (r,))(plain()),
+                                   "%s %dx%d" % (fn, n, L))
+                    rec["plain_device_ms"] = device_ms(plain, inner=2,
+                                                       trials=3)
+                if whole is not None:
+                    rec["call_event_ms"] = event_ms(whole, inner=3,
+                                                    trials=3)
+                out["kernels"]["%s_%dx%d" % (fn, n, L)] = rec
+                del call, plain, whole
+        out["cli_op_launches_4096x256"] = _cli_op_launches(cs, reads)
+        walls = {}
+        cmds = dict(cs.CLI_COMMANDS)
+        for name in CLI_OP_COMMANDS:
+            runs = []
+            for _ in range(2):
+                d = os.path.join(tmp, "out")
+                argv = [a.format(out=d, **{"in": reads})
+                        for a in cmds[name]]
+                runs.append(_cli_hashed(argv, d))
+                shutil.rmtree(d)
+            if runs[0][1] != runs[1][1]:
+                raise AssertionError("cli %s: two runs differ" % name)
+            walls[name] = dict(wall_s=[w for w, _ in runs],
+                               sha256=runs[0][1])
+        out["cli_walls"] = walls
     return out
 
 
@@ -885,7 +966,7 @@ def main(argv=None):
                     help="also time qc_stats over rows a block x cluster "
                     "size")
     ap.add_argument("--only", choices=("device_parse", "merge",
-                                       "merge_kernel"),
+                                       "merge_kernel", "cli_ops"),
                     help="time only this section")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)

@@ -1,0 +1,334 @@
+"""Parity: the CLI's device ops of the port (trim's three modes,
+demux_assign, the per-tile sums and kmer_counts; ops/{trim,demux,tiles,
+kmer}.py) against the reference's jitted functions, every leaf with
+np.array_equal, and their dispatch contract.
+
+The cases are chip_smoke.py's CLI_OP_EDGE_CASES, made from a seed with
+numpy: lengths 0, negative and over L, quality bytes below the offset,
+all-low rows, bwa_trim ties, windows longer than the read, widths of 1 and
+12, offset 64; N in barcodes and reads, reads shorter than the barcode,
+ties, K = 1, 384 barcodes of 32 bases, an odd width with lowercase and
+other bytes; k = 1..8, n_records as an int and as a tensor; grouped,
+shuffled and unknown tiles. On the CPU each op runs its plain torch version
+(`*_torch`) and counts no launch; other devices raise.
+
+The card cases (*on_card*) hold each kernel (csrc/trim.cu, demux.cu,
+tiles.cu, kmer.cu) against its plain version on the same CUDA tensors, on
+the edge cases and at the CLI's shapes (4,096 x 256, demux's 16,384 x 256,
+32,768 x 1,024), each also 1 and 13 bytes off 16-byte alignment; they skip
+where there is no CUDA device or no nvcc.
+"""
+
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from blazeseq_tpu_torch.ops import demux, kmer, tiles, trim
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _load_chip_smoke():
+    """chip_smoke.py (numpy and the standard library at import), for the
+    shared edge cases."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CS = _load_chip_smoke()
+SEED = 0
+OPS = {"clip_ends": trim.clip_ends,
+       "sliding_window_trim": trim.sliding_window_trim,
+       "bwa_trim": trim.bwa_trim, "demux_assign": demux.demux_assign,
+       "per_tile_qual_sums": tiles.per_tile_qual_sums,
+       "kmer_counts": kmer.kmer_counts}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in parallel worker processes: keep this module's
+    torch CPU ops on one thread so they do not crowd the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _launches():
+    return {k: f.launches for k, f in OPS.items()}
+
+
+def _reference_calls(op, arrays, kw):
+    """The reference's result for each call of CS.cli_op_calls, in order."""
+    import jax.numpy as jnp
+
+    from blazeseq_tpu.ops import demux as ref_demux
+    from blazeseq_tpu.ops import kmer as ref_kmer
+    from blazeseq_tpu.ops import tiles as ref_tiles
+    from blazeseq_tpu.ops import trim as ref_trim
+
+    out = []
+    if op == "trim":
+        q, lens = jnp.asarray(arrays["qual"]), jnp.asarray(arrays["lengths"])
+        for fn, fkw in CS.trim_modes(arrays["qual"].shape[1]):
+            rkw = {k: (v if k == "window" else jnp.int32(v))
+                   for k, v in fkw.items()}
+            r = getattr(ref_trim, fn)(q, lens, jnp.int32(kw["offset"]), **rkw)
+            out.append(r if isinstance(r, tuple) else (r,))
+    elif op == "demux":
+        for mm in kw["max_mismatches"]:
+            out.append(ref_demux.demux_assign(arrays["seq"], arrays["lengths"],
+                                              kw["barcodes"], mm))
+    elif op == "kmer":
+        nr = kw["n_records"]
+        for k in kw["ks"]:
+            out.append((ref_kmer.kmer_counts(
+                jnp.asarray(arrays["seq"]), jnp.asarray(arrays["lengths"]),
+                None if nr is None else jnp.int32(nr), k=k),))
+    else:
+        out.append(ref_tiles.per_tile_qual_sums(
+            arrays["tiles"], arrays["qual"], arrays["lengths"], kw["offset"],
+            n_records=kw["n_records"]))
+    return out
+
+
+@pytest.mark.parametrize("label", CS.CLI_OP_EDGE_CASES)
+def test_cli_op_case_matches_reference(label):
+    pytest.importorskip("jax")
+    op, arrays, kw = CS.cli_op_case(label, SEED)
+    d = CS.cli_op_tensors(arrays, "cpu")
+    calls = CS.cli_op_calls(op, d, kw)
+    before = _launches()
+    got = [f() for _, f, _ in calls]
+    assert _launches() == before  # the CPU route launches nothing
+    want = _reference_calls(op, arrays, kw)
+    assert len(got) == len(want) == len(calls)
+    for (name, _, plain), g, w in zip(calls, got, want):
+        CS.same_leaves(g, tuple(np.asarray(x) for x in w), name)
+        CS.same_leaves(g, plain(), name)
+
+
+def test_cases_reach_their_edges():
+    """The inputs hold what their labels name."""
+    def case(label):
+        return CS.cli_op_case(label, SEED)
+
+    _, a, _ = case("trim: lengths 0, negative and over L")
+    lens = a["lengths"]
+    assert (lens == 0).any() and (lens < 0).any() and (lens > 80).any()
+    _, a, _ = case("trim: bytes below the offset")
+    assert (a["qual"] < 33).sum() > 1000
+    _, a, kw = case("trim: bwa ties")
+    got = trim.bwa_trim_torch(torch.from_numpy(a["qual"]),
+                              torch.from_numpy(a["lengths"]), 33, 20)
+    ties = 0
+    for i, q in enumerate(a["qual"]):
+        m = min(int(a["lengths"][i]), q.size)
+        s = np.cumsum((20 - (q[:m].astype(int) - 33))[::-1])[::-1]
+        if m and s.max() > 0 and (s == s.max()).sum() > 1:
+            ties += 1
+            assert int(got[i]) == int(np.flatnonzero(s == s.max())[-1])
+    assert ties > 10
+    _, a, _ = case("trim: windows longer than the read")
+    assert (a["lengths"] < 4).any() and (a["lengths"] < 12).mean() > 0.5
+    _, a, kw = case("demux: reads shorter than the barcode")
+    assert (a["lengths"] < 6).sum() > 50 and (a["lengths"] < 0).any()
+    _, a, kw = case("demux: ties")
+    _, best = demux.demux_assign_torch(torch.from_numpy(a["seq"]),
+                                       torch.from_numpy(a["lengths"]),
+                                       kw["barcodes"], 1)
+    assert (best.numpy()[::2] == 1).all()
+    _, a, kw = case("demux: 384 barcodes of 32 bases")
+    assert len(kw["barcodes"]) == 384 and b"N" in kw["barcodes"][7]
+    _, a, kw = case("tiles: shuffled")
+    t = a["tiles"]
+    assert (t[1:] != t[:-1]).sum() > 50
+    _, a, kw = case("kmer: n_records as a tensor")
+    assert kw["tensor"] and kw["n_records"] < len(a["lengths"])
+
+
+def test_cpu_tensors_run_the_plain_versions_and_other_devices_raise():
+    for label in ("trim: lengths 0, negative and over L",
+                  "demux: N in barcodes and reads",
+                  "kmer: n_records as a tensor",
+                  "tiles: unknown tiles and n_records"):
+        op, arrays, kw = CS.cli_op_case(label, SEED)
+        d = CS.cli_op_tensors(arrays, "cpu")
+        before = _launches()
+        for name, f, plain in CS.cli_op_calls(op, d, kw):
+            CS.same_leaves(f(), plain(), name)
+        assert _launches() == before
+    q = torch.zeros((4, 32), dtype=torch.uint8, device="meta")
+    lens = torch.zeros(4, dtype=torch.int32, device="meta")
+    for fn in (trim.clip_ends, trim.sliding_window_trim, trim.bwa_trim):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(q, lens, 33)
+    with pytest.raises(ValueError, match="unsupported device"):
+        demux.demux_assign(q, lens, [b"ACGT"])
+    with pytest.raises(ValueError, match="unsupported device"):
+        kmer.kmer_counts(q, lens, k=3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tiles.per_tile_qual_sums(np.zeros(4, np.int32), q, lens, 33)
+
+
+def test_barcode_words_layout_and_cache():
+    """The set as csrc/demux.cu reads it, made once a set and device: the
+    upper-cased bytes four a word, then 0xFF masks off 'N' and past bl."""
+    bcs = (b"acgTN", b"GGCCA")
+    w = demux._barcode_words(bcs, torch.device("cpu"))
+    assert w is demux._barcode_words(bcs, torch.device("cpu"))
+    assert w.dtype == torch.int32 and tuple(w.shape) == (2, 2, 2)
+    raw = w.numpy().view(np.uint8).reshape(2, 2, 8)
+    assert raw[0, 0].tobytes() == b"ACGTN\0\0\0"
+    assert raw[0, 1].tobytes() == b"GGCCA\0\0\0"
+    assert raw[1, 0].tolist() == [255, 255, 255, 255, 0, 0, 0, 0]
+    assert raw[1, 1].tolist() == [255] * 5 + [0] * 3
+
+
+def test_tile_rows_map():
+    """The host's row -> tile-row map and the order the tiles kernel reads:
+    unknown tiles and rows past n_records go to the dropped row, which the
+    order leaves out."""
+    t = np.array([2101, 1101, -1, 2101, 1101, 7], np.int32)
+    uniq, dst, rows = tiles._tile_rows(t, 6, None, 5)
+    assert uniq.tolist() == [1101, 2101] and rows == 2
+    assert dst.dtype == np.int32 and dst.tolist() == [1, 0, 2, 1, 0, 2]
+    order = tiles._tile_order(dst, rows)
+    # the rows of known tiles, grouped by tile, in batch order within one
+    assert order.dtype == np.int32
+    assert order.tolist() == [[1, 4, 0, 3], [0, 0, 1, 1]]
+    uniq, dst, rows = tiles._tile_rows(np.full(3, -1, np.int32), 3, None,
+                                       None)
+    assert len(uniq) == 0 and rows == 1 and dst.tolist() == [1, 1, 1]
+    assert tiles._tile_order(dst, rows).shape == (2, 0)
+
+
+# ------------------------------------------------------------ on the card
+
+@pytest.fixture
+def card():
+    """Skip without a CUDA device or without nvcc: the kernels have no CPU
+    mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CLI ops' kernels have no CPU "
+                    "mode")
+    from blazeseq_tpu_torch import _kernels
+
+    try:
+        _kernels.find_nvcc()
+    except RuntimeError as e:
+        pytest.skip("needs nvcc to build the kernels: %s" % e)
+    _kernels.load()
+
+
+def _on_card(op, arrays, kw, view, label):
+    d = CS.cli_op_tensors(arrays, "cuda", view)
+    for name, f, plain in CS.cli_op_calls(op, d, kw):
+        before = _launches()
+        got = f()
+        torch.cuda.synchronize()
+        after = _launches()
+        launched = {k: after[k] - before[k] for k in after if after[k]
+                    != before[k]}
+        assert list(launched.values()) in ([1], []), (name, launched)
+        # a batch with no read of a known tile sums nothing on the card
+        idle = not len(arrays["lengths"]) or (
+            op == "tiles" and not (arrays["tiles"] >= 0).any())
+        assert bool(launched) != idle, (name, launched)
+        CS.same_leaves(got, plain(), "%s, %s, view %d" % (label, name, view))
+
+
+@pytest.mark.parametrize("view", (0, 1))
+@pytest.mark.parametrize("label", CS.CLI_OP_EDGE_CASES)
+def test_cli_op_case_on_card(card, label, view):
+    op, arrays, kw = CS.cli_op_case(label, SEED)
+    _on_card(op, arrays, kw, view, label)
+
+
+CARD_OPTIONS = dict(trim=dict(offset=33),
+                    demux=dict(barcodes=CS.DEMUX_BARCODES,
+                               max_mismatches=(0, 1)),
+                    kmer=dict(n_records=None, ks=(4, 7, 8)),
+                    tiles=dict(offset=33, n_records=None))
+
+
+@pytest.mark.parametrize("view", CS.CLI_OP_VIEW_OFFSETS)
+@pytest.mark.parametrize("shape", CS.CLI_OP_CARD_SHAPES)
+@pytest.mark.parametrize("op", ("trim", "demux", "kmer", "tiles"))
+def test_cli_op_card_shapes_on_card(card, op, shape, view):
+    arrays = CS.cli_op_card_batch(op, *shape, SEED)
+    _on_card(op, arrays, CARD_OPTIONS[op], view, "%s %dx%d" % ((op,) + shape))
+
+
+def test_cli_kernels_refuse_bad_batches_on_card(card):
+    q = torch.full((8, 32), 60, dtype=torch.uint8, device="cuda")
+    lens = torch.full((8,), 20, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        trim.bwa_trim(q, lens.cpu(), 33)
+    with pytest.raises(ValueError, match="must be contiguous"):
+        trim.clip_ends(q.t().contiguous().t(), lens, 33)
+    with pytest.raises(ValueError, match="window"):
+        trim.sliding_window_trim(q, lens, 33, window=33)
+    with pytest.raises(ValueError, match="int32"):
+        trim.bwa_trim(q, lens, 33, threshold=1 << 40)
+    with pytest.raises(ValueError, match="narrower"):
+        demux.demux_assign(q[:, :4].contiguous(), lens, [b"ACGTA"])
+    with pytest.raises(ValueError, match="must be contiguous"):
+        kmer.kmer_counts(q[:, ::2], lens, k=3)
+    with pytest.raises(ValueError, match="one value"):
+        kmer.kmer_counts(q, lens, torch.ones(2, device="cuda"), k=3)
+    # lengths on the host with rows on the card raise in every op
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        demux.demux_assign(q, lens.cpu(), [b"ACGTA"])
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        tiles.per_tile_qual_sums(np.zeros(8, np.int32), q, lens.cpu(), 33)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        kmer.kmer_counts(q, lens.cpu(), k=3)
+    # barcode sets past the kernel's 32 bases or 48 KB of shared memory
+    wide = torch.full((8, 64), 65, dtype=torch.uint8, device="cuda")
+    with pytest.raises(ValueError, match="up to 32"):
+        demux.demux_assign(wide, lens, [b"A" * 33])
+    with pytest.raises(ValueError, match="up to 6144 words"):
+        demux.demux_assign(wide, lens, _barcode_set(769, 32))
+
+
+def _barcode_set(K, bl):
+    """K distinct barcodes of bl bases (ACGT, one N in every 8th)."""
+    rng = np.random.default_rng(SEED)
+    codes = rng.choice(np.frombuffer(b"ACGT", np.uint8), (K, bl))
+    codes[::8, bl // 2] = ord("N")
+    return sorted({c.tobytes() for c in codes})[:K]
+
+
+def test_demux_largest_set_on_card(card):
+    """768 barcodes of 32 bases, the most the kernel's 48 KB of shared
+    memory holds, against the plain version; reads planted from the set
+    with up to two mismatches."""
+    bcs = _barcode_set(768, 32)
+    assert len(bcs) == 768
+    rng = np.random.default_rng(SEED)
+    n, L = 4096, 64
+    seq = rng.choice(np.frombuffer(b"ACGTNacgt", np.uint8), (n, L))
+    pick = rng.integers(0, len(bcs), n)
+    planted = np.frombuffer(b"".join(bcs), np.uint8).reshape(-1, 32)[pick]
+    seq[:, :32] = np.where(planted == ord("N"), ord("A"), planted)
+    for j in range(2):
+        col = rng.integers(0, 32, n)
+        hit = rng.random(n) < 0.4
+        seq[hit, col[hit]] = ord("T") - j
+    lens = rng.integers(20, L + 1, n).astype(np.int32)
+    for mm in (0, 1, 2):
+        before = demux.demux_assign.launches
+        got = demux.demux_assign(torch.from_numpy(seq).cuda(),
+                                 torch.from_numpy(lens).cuda(), bcs, mm)
+        assert demux.demux_assign.launches == before + 1
+        want = demux.demux_assign_torch(torch.from_numpy(seq),
+                                        torch.from_numpy(lens), bcs, mm)
+        CS.same_leaves(got, want, "768 barcodes, max_mismatches %d" % mm)
+        assert (got[0].cpu() >= 0).any()

@@ -81,7 +81,8 @@ def test_every_kernel_source_is_built_and_bound():
     assert _kernels.SOURCES == ("validate.cu", "uniform_qc.cu", "nw.cu",
                                 "scan.cu", "ragged_qc.cu", "qc_stats.cu",
                                 "adapter.cu", "dedup.cu", "parse.cu",
-                                "merge.cu")
+                                "merge.cu", "trim.cu", "demux.cu", "tiles.cu",
+                                "kmer.cu")
     for name in _kernels.SOURCES:
         assert os.path.exists(os.path.join(_kernels.CSRC, name))
     # the C entry points of each kernel source, each with its argument types
@@ -95,7 +96,10 @@ def test_every_kernel_source_is_built_and_bound():
                "parse.cu": ("bs_raw_stream_qc", "bs_newline_positions",
                             "bs_record_offsets", "bs_gather_padded",
                             "bs_count_records"),
-               "merge.cu": ("bs_merge_pairs",)}
+               "merge.cu": ("bs_merge_pairs",), "trim.cu": ("bs_trim",),
+               "demux.cu": ("bs_demux_assign",),
+               "tiles.cu": ("bs_tile_sums",),
+               "kmer.cu": ("bs_kmer_counts",)}
     for source, names in entries.items():
         with open(os.path.join(_kernels.CSRC, source)) as f:
             text = f.read()
