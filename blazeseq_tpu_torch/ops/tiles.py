@@ -4,11 +4,13 @@
 Illumina read ids carry the flowcell tile as the 5th colon-separated field
 of the first whitespace token (`instr:run:flowcell:lane:tile:x:y`). Tile
 numbers are parsed on the host from the id SoA, and the host maps each row
-to its tile's row (`_tile_rows`). The [tile, position] Phred sums and base
-counts are integer sums, exact on any device whatever its float settings:
-CUDA tensors take one launch of the hand-written kernel in csrc/tiles.cu
-after one zero fill (counted in `per_tile_qual_sums.launches`) or the call
-raises; CPU tensors take the plain torch version
+to its tile's row (`_tile_rows`), in file order: nothing is sorted. The
+[tile, position] Phred sums and base counts are integer sums, exact on any
+device whatever its float settings: CUDA tensors take the row map up in one
+copy and one launch of the hand-written kernel in csrc/tiles.cu, which sums
+in shared memory and writes every cell of the float32 sums itself (no fill;
+counted in `per_tile_qual_sums.launches`), and the sums come back in one
+copy; or the call raises. CPU tensors take the plain torch version
 `per_tile_qual_sums_torch` (two int64 `index_add_`s). They are returned in
 float32, as the reference returns them (exact below 2^24 per batch).
 PerTileAccumulator adds batches in int64 on the host; `mean()` /
@@ -17,6 +19,7 @@ PerTileAccumulator adds batches in int64 on the host; `mean()` /
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -95,41 +98,66 @@ def per_tile_qual_sums_torch(tiles: np.ndarray, qual, lengths, offset: int,
     return np.asarray(unique_tiles).astype(np.int64), sums, counts
 
 
-def _tile_order(dst, rows):
-    """The rows of known tiles (dst < rows) grouped by tile, for the
-    kernel: int32 [2, k], their indices, then their tile rows. Keys of 16
-    bits take numpy's stable radix sort, int32 keys its merge sort."""
-    key = dst.astype(np.uint16) if rows < (1 << 16) else dst
-    order = np.argsort(key, kind="stable")[:int((dst < rows).sum())]
-    return np.stack([order, dst[order]]).astype(np.int32)
+# the kernel's scratch, kept by (name, device, stream) for the stream's
+# later calls: int64 sums [T, L] of the slabs and one ticket a tile range
+# and span, zeroed once and left zero by every launch
+_KEPT = {}
 
 
-def _tile_sums_launch(qual, lengths, order, out, offset) -> None:
+def _kept(name, device, stream, numel, dtype):
+    """A zeroed 1-D tensor of at least numel elements on `device`, made
+    anew only to grow."""
+    key = (name, device.index, stream)
+    have = _KEPT.get(key)
+    if have is None or have.numel() < numel:
+        size = max(numel, 1 if have is None else 2 * have.numel())
+        have = torch.zeros(size, dtype=dtype, device=device)
+        _KEPT[key] = have
+    return have
+
+
+def _tile_sums_launch(qual, lengths, dst, out, offset) -> None:
     """One launch of csrc/tiles.cu, counted in
     `per_tile_qual_sums.launches`: the rows of qual u8[n, L] (lengths i32
-    [n]) that `order` (int32 [2, k] on the card, from _tile_order) lists
-    added into out, zeroed int64 [2, T, L]."""
-    k = order.shape[1]
-    L = qual.shape[1]
-    if not (k and L):
+    [n]) summed by their tile row in dst (int32 [n] on the card, from
+    _tile_rows; T = out.shape[1] or more for none) into every cell of out,
+    float32 [2, T, L]."""
+    n, L = qual.shape
+    if not (n and L):
         return
     lib = _kernels.load()
     dev = qual.device
+    T = out.shape[1]
+    stream = _kernels.stream_ptr(dev)
+    # a ticket a tile range (at most T) and 128-column span
+    sums = _kept("sums", dev, stream, T * L, torch.int64)
+    tickets = _kept("tickets", dev, stream, T * -(-L // 128), torch.int32)
     with _kernels.on_device(dev):
         err = lib.bs_tile_sums(qual.data_ptr(), lengths.data_ptr(),
-                               order.data_ptr(), out.data_ptr(), k, L,
-                               out.shape[1], offset, MAX_PHRED,
-                               _kernels.sm_count(dev.index),
-                               _kernels.stream_ptr(dev))
+                               dst.data_ptr(), out.data_ptr(),
+                               sums.data_ptr(), tickets.data_ptr(), n, L, T,
+                               offset, MAX_PHRED, _kernels.sm_count(dev.index),
+                               stream)
     _kernels.check(err, "bs_tile_sums")
     per_tile_qual_sums.launches += 1
 
 
+# set to a list, the CUDA call appends (step, time.perf_counter()) at the
+# start and at the end of each of its steps, for a caller that times them
+step_marks = None
+
+
+def _mark(step):
+    if step_marks is not None:
+        step_marks.append((step, time.perf_counter()))
+
+
 def _per_tile_qual_sums_cuda(tiles, qual, lengths, offset, unique_tiles,
                              n_records):
-    """The rows of known tiles grouped by tile on the host and sent up in
-    one copy, one zero fill and one launch into int64 [2, T, L], the sums
-    back in one copy, made float32 on the host."""
+    """The row map made on the host and sent up in one copy, one launch
+    into float32 [2, T, L], the sums back in one copy. A batch with no row
+    of a known tile launches nothing."""
+    _mark("start")
     lengths = torch.as_tensor(lengths).to(torch.int32)
     check_cuda_batch("per_tile_qual_sums", [("qual", qual)],
                      [("lengths", lengths)])
@@ -138,13 +166,23 @@ def _per_tile_qual_sums_cuda(tiles, qual, lengths, offset, unique_tiles,
     if not -(1 << 31) <= offset < (1 << 31):
         raise ValueError("per_tile_qual_sums: offset %d is not an int32"
                          % offset)
+    _mark("checks")
     unique_tiles, dst, rows = _tile_rows(np.asarray(tiles), n, unique_tiles,
                                          n_records)
-    out = torch.zeros((2, rows, L), dtype=torch.int64, device=qual.device)
-    order = torch.from_numpy(_tile_order(dst, rows)).to(qual.device)
-    _tile_sums_launch(qual, lengths, order, out, offset)
-    host = out.cpu().numpy().astype(np.float32)
-    return np.asarray(unique_tiles).astype(np.int64), host[0], host[1]
+    unique_tiles = np.asarray(unique_tiles).astype(np.int64)
+    if not (L and (dst < rows).any()):
+        zeros = np.zeros((rows, L), np.float32)
+        return unique_tiles, zeros, zeros.copy()
+    _mark("tile_rows")
+    dst = torch.from_numpy(dst).to(qual.device)
+    _mark("upload")
+    out = torch.empty((2, rows, L), dtype=torch.float32, device=qual.device)
+    _mark("alloc")
+    _tile_sums_launch(qual, lengths, dst, out, offset)
+    _mark("launch")
+    host = out.cpu().numpy()
+    _mark("download")
+    return unique_tiles, host[0], host[1]
 
 
 def per_tile_qual_sums(tiles: np.ndarray, qual, lengths, offset: int,

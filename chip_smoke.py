@@ -19,7 +19,10 @@ and a 256 MiB uniform one at 150 columns; the merge kernel of
 csrc/merge.cu on MERGE_EDGE_CASES, MERGE_CARD_CASES and the first batch
 pair of the merge mates; the CLI ops' kernels of csrc/trim.cu, demux.cu,
 tiles.cu and kmer.cu on CLI_OP_EDGE_CASES, the first reads of the 1M-read
-file as the CLI pads them and a 32,768 x 1,024 batch), then
+file as the CLI pads them and a 32,768 x 1,024 batch, the tile sums also
+beside their one PyTorch call, torch.mm of the one-hot tile matrix, and
+each trim mode and the tile sums shown to run one kernel a call and no
+fill), then
 drives the port's paths, each with the launch counts set to 0 just before
 it and read just after, and with no plain torch version of a host-route,
 device-parse, merge or CLI op kernel (ops/nw.py's wavefronts,
@@ -91,6 +94,7 @@ import concurrent.futures as cf
 import json
 import mmap
 import os
+import re
 import shutil
 import struct
 import subprocess
@@ -1257,7 +1261,19 @@ CLI_OP_EDGE_CASES = (
     "trim: windows longer than the read",
     "trim: L = 12",
     "trim: L = 1",
+    "trim: L = 3",
+    "trim: L = 5",
+    "trim: L = 13",
+    "trim: L = 1,024, windows across lane segments",
+    "trim: L = 2,176, windows across rounds",
+    "trim: L = 1,500, windows across rounds",
     "trim: offset 64",
+    "trim: offset 0",
+    "trim: offset 255",
+    "trim: offset 256",
+    "trim: offset -5",
+    "trim: offset -2^31 + 100 (Phred wraps)",
+    "trim: thresholds outside 0-255",
     "demux: N in barcodes and reads",
     "demux: reads shorter than the barcode",
     "demux: ties",
@@ -1271,11 +1287,16 @@ CLI_OP_EDGE_CASES = (
     "tiles: grouped",
     "tiles: shuffled",
     "tiles: unknown tiles and n_records",
-    "tiles: no known tile")
+    "tiles: no known tile",
+    "tiles: T = n",
+    "tiles: every row one tile",
+    "tiles: negative tile numbers",
+    "tiles: unknown tiles interleaved, 32,768 x 1,024")
 # the card-only ones: the CLI's batch shapes (trim and tiles take 4,096
-# reads padded to 256, demux 16,384 x 256), reads up to 1 kb, and each at
-# a view 1 and 13 bytes off 16-byte alignment
-CLI_OP_CARD_SHAPES = ((4096, 256), (16384, 256), (32768, 1024))
+# reads padded to 256, demux 16,384 x 256), reads up to 1 kb and up to 2 kb
+# (trim takes rows wider than 1,024 columns in rounds), and each at a view
+# 1 and 13 bytes off 16-byte alignment
+CLI_OP_CARD_SHAPES = ((4096, 256), (16384, 256), (32768, 1024), (4096, 2048))
 CLI_OP_VIEW_OFFSETS = (0, 1, 13)
 TRIM_MODES = (
     ("clip_ends", dict(leading=3, trailing=3)),
@@ -1287,6 +1308,51 @@ TRIM_MODES = (
     ("bwa_trim", dict(threshold=20)),
     ("bwa_trim", dict(threshold=0)),
     ("bwa_trim", dict(threshold=35)))
+# trim modes whose thresholds pass the byte range (wrapping int32 sums in
+# bwa_trim at 2^28 a base), and the modes of the 1,024-column case: windows
+# of 33 and 100 bases and one as wide as the batch, across the lanes'
+# 32-column segments
+TRIM_MODES_WIDE = (
+    ("clip_ends", dict(leading=-3, trailing=300)),
+    ("clip_ends", dict(leading=256, trailing=-1)),
+    ("clip_ends", dict(leading=-(1 << 31), trailing=(1 << 31) - 1)),
+    ("sliding_window_trim", dict(mean_q=100, window=4)),
+    ("sliding_window_trim", dict(mean_q=-2, window=3)),
+    ("sliding_window_trim", dict(mean_q=70, window=5)),
+    ("bwa_trim", dict(threshold=-5)),
+    ("bwa_trim", dict(threshold=300)),
+    ("bwa_trim", dict(threshold=1 << 28)),
+    ("bwa_trim", dict(threshold=-(1 << 31))))
+TRIM_MODES_1024 = (
+    ("sliding_window_trim", dict(mean_q=20, window=33)),
+    ("sliding_window_trim", dict(mean_q=20, window=100)),
+    ("sliding_window_trim", dict(mean_q=21, window=1024)),
+    ("sliding_window_trim", dict(mean_q=15, window=4)),
+    ("bwa_trim", dict(threshold=20)),
+    ("clip_ends", dict(leading=20, trailing=30)))
+# the modes of the cases wider than 1,024 columns, which trim.cu takes in
+# rounds of 1,024: windows that cross a round's edge, one wider than a
+# round, one as wide as the narrower case (1,500) and one as the wider
+# (2,176; the narrower case leaves it out)
+TRIM_MODES_ROUNDS = (
+    ("sliding_window_trim", dict(mean_q=20, window=33)),
+    ("sliding_window_trim", dict(mean_q=20, window=100)),
+    ("sliding_window_trim", dict(mean_q=22, window=1100)),
+    ("sliding_window_trim", dict(mean_q=21, window=1500)),
+    ("sliding_window_trim", dict(mean_q=21, window=2176)),
+    ("sliding_window_trim", dict(mean_q=15, window=4)),
+    ("bwa_trim", dict(threshold=20)),
+    ("bwa_trim", dict(threshold=35)),
+    ("clip_ends", dict(leading=20, trailing=30)),
+    ("clip_ends", dict(leading=30, trailing=30)))
+# Phred = byte - offset wraps in int32 for the bytes from 100 on: clip_ends
+# keeps the bytes below 100 (huge Phred) and, at the second threshold,
+# those from 150 on
+TRIM_MODES_WRAP = (
+    ("clip_ends", dict(leading=3, trailing=-(1 << 31) + 50)),
+    ("clip_ends", dict(leading=(1 << 31) - 1, trailing=-(1 << 31))),
+    ("sliding_window_trim", dict(mean_q=15, window=4)),
+    ("bwa_trim", dict(threshold=20)))
 KMER_KS = tuple(range(1, 9))
 # the trim, tiles and kmer bounds' int32 operations a byte in length: the
 # Phred subtract, a compare and an add or select (kmer: the code, a shift,
@@ -1296,9 +1362,10 @@ CLI_OPS_PER_BYTE = 3
 DEMUX_OPS_PER_WORD = 4
 
 
-def trim_modes(L):
-    """The TRIM_MODES a batch of width L takes (window <= L)."""
-    return tuple((fn, kw) for fn, kw in TRIM_MODES
+def trim_modes(L, modes=None):
+    """The modes (TRIM_MODES by default) a batch of width L takes (window
+    <= L)."""
+    return tuple((fn, kw) for fn, kw in modes or TRIM_MODES
                  if kw.get("window", 1) <= L)
 
 
@@ -1319,13 +1386,34 @@ def cli_op_case(label, seed):
     rng = np.random.default_rng([seed, 31, CLI_OP_EDGE_CASES.index(label)])
     op = label.split(":")[0]
     if op == "trim":
-        n, L, off = 96, 80, 33
-        if label.endswith("L = 12"):
-            L = 12
-        elif label.endswith("L = 1"):
-            L = 1
+        n, L, off, modes = 96, 80, 33, None
+        width = re.search(r"L = ([\d,]+)", label)
+        if width:
+            L = int(width.group(1).replace(",", ""))
         qual = _qual_rows(rng, n, L)
         lens = rng.integers(0, L + 1, n)
+        if label.startswith("trim: offset") and label != "trim: offset 64":
+            # every byte value; the offset named in the label
+            qual = rng.integers(0, 256, (n, L)).astype(np.uint8)
+            off = (-(1 << 31) + 100 if "2^31" in label
+                   else int(label.split()[2]))
+            if "wraps" in label:
+                modes = TRIM_MODES_WRAP
+        elif label == "trim: thresholds outside 0-255":
+            qual = _qual_rows(rng, n, L, 0, 121)
+            modes = TRIM_MODES_WIDE
+        elif L >= 1024:
+            # high Phred up to a drop at a random column, then low: the
+            # first failing window falls anywhere in the row (past 1,024
+            # columns, in any round)
+            n = 64
+            qual = _qual_rows(rng, n, L, 60, 76)
+            drop = rng.integers(0, L, n)
+            low = np.arange(L)[None, :] >= drop[:, None]
+            qual[low] = _qual_rows(rng, n, L, 33, 46)[low]
+            lens = rng.integers(L // 2, L + 1, n)
+            lens[::2] = L
+            modes = TRIM_MODES_1024 if L == 1024 else TRIM_MODES_ROUNDS
         if label == "trim: lengths 0, negative and over L":
             lens[:8] = 0
             lens[8:16] = -rng.integers(1, 40, 8)
@@ -1350,7 +1438,7 @@ def cli_op_case(label, seed):
             off = 64
             qual = _qual_rows(rng, n, L, 40, 110)
         return "trim", dict(qual=qual, lengths=lens.astype(np.int32)), dict(
-            offset=off)
+            offset=off, modes=modes)
     if op == "demux":
         barcodes = [b"ACGTAC", b"TTGGCA", b"ACGTAN", b"GGGGGG", b"NNCATG"]
         n, L = 200, 64
@@ -1414,6 +1502,21 @@ def cli_op_case(label, seed):
             n_records = 123
         elif label == "tiles: no known tile":
             tiles[:] = -1
+        elif label == "tiles: T = n":
+            # a tile a row: more tiles than one block's shared memory holds
+            n, L = 4096, 40
+            tiles = (1000 + rng.permutation(n)).astype(np.int32)
+        elif label == "tiles: every row one tile":
+            tiles[:] = 2101
+        elif label == "tiles: negative tile numbers":
+            # unknown, as -1 is: each row of them sums into no tile
+            tiles = rng.permutation(tiles)
+            tiles[::3] = rng.choice(np.array(
+                [-2, -7, -100000, -(1 << 31), -1], np.int32), len(tiles[::3]))
+        elif label.startswith("tiles: unknown tiles interleaved"):
+            n, L, n_records = 32768, 1024, 32768 - 100
+            tiles = rng.choice(np.array(TILES + (-1,), np.int32), n)
+            tiles[::3] = -1
         qual = _qual_rows(rng, n, L, 0, 120)
         lens = rng.integers(-5, L + 20, n)
         return "tiles", dict(tiles=tiles, qual=qual,
@@ -1464,7 +1567,7 @@ def cli_op_calls(op, d, kw):
 
     calls = []
     if op == "trim":
-        for fn, fkw in trim_modes(d["qual"].shape[1]):
+        for fn, fkw in trim_modes(d["qual"].shape[1], kw.get("modes")):
             name = "%s(%s)" % (fn, ", ".join("%s=%s" % x for x in
                                              fkw.items()))
             calls.append((name,) + pair(trim, fn, d["qual"], d["lengths"],
@@ -1537,8 +1640,9 @@ def same_leaves(got, want, label):
 
 def cli_op_bound(op, arrays, **kw):
     """bound() of one call of a CLI op on these arrays (numpy): each row's
-    bytes in length read once (demux: its first bl), the lengths (and
-    tiles' row map) read once, the outputs written once; CLI_OPS_PER_BYTE
+    bytes in length read once (demux: its first bl; tiles: of the rows of
+    known tiles), the lengths (and tiles' row map) read once, the outputs
+    written once (tiles: float32 sums and counts); CLI_OPS_PER_BYTE
     int32 operations a byte in length, DEMUX_OPS_PER_WORD a barcode word a
     read."""
     lens = arrays["lengths"].astype(np.int64)
@@ -1555,7 +1659,7 @@ def cli_op_bound(op, arrays, **kw):
         known = arrays["tiles"] >= 0
         T = max(len(np.unique(arrays["tiles"][known])), 1)
         b = int(used[known].sum())
-        return bound(b + 8 * n + 2 * 8 * T * L, CLI_OPS_PER_BYTE * b)
+        return bound(b + 8 * n + 2 * 4 * T * L, CLI_OPS_PER_BYTE * b)
     if op == "kmer":
         b = int(used.sum())
         return bound(b + 4 * n + 4 * 4 ** kw["k"], CLI_OPS_PER_BYTE * b)
@@ -3637,10 +3741,12 @@ CLI_OP_TIMED = (
 def _timed_cli_op(op, fn, kw, d):
     """(the op's call, its plain version's or None, bound, the whole call or
     None) of one CLI_OP_TIMED entry on the tensors d. The tiles kernel is
-    timed as its zero fill and launch on a row order already on the card
-    (the whole call also groups the rows by tile, uploads the order,
-    copies the sums back and converts them on the host). In a tree without the kernels (no
-    `*_torch`), the op is its torch ops and there is no plain version."""
+    timed as its launch alone, on a row map already on the card into an
+    output already made (the whole call also maps the rows on the host,
+    uploads the map, copies the sums back); in a tree whose kernel reads
+    the rows grouped by tile (`_tile_order`), as that order's zero fill and
+    launch. In a tree without the kernels (no `*_torch`), the op is its
+    torch ops and there is no plain version."""
     import functools
 
     import torch
@@ -3669,30 +3775,99 @@ def _timed_cli_op(op, fn, kw, d):
     if op != "tiles" or not hasattr(tiles, "_tile_sums_launch"):
         return call, plain, b, None
     _, dst, rows = tiles._tile_rows(d["tiles"], len(d["tiles"]), None, None)
-    order = torch.from_numpy(tiles._tile_order(dst, rows)).cuda()
     L = d["qual"].shape[1]
+    if hasattr(tiles, "_tile_order"):
+        order = torch.from_numpy(tiles._tile_order(dst, rows)).cuda()
 
-    def launch():
-        out = torch.zeros((2, rows, L), dtype=torch.int64, device="cuda")
-        tiles._tile_sums_launch(d["qual"], d["lengths"], order, out, 33)
-    return launch, plain, b, call
+        def launch():
+            out = torch.zeros((2, rows, L), dtype=torch.int64, device="cuda")
+            tiles._tile_sums_launch(d["qual"], d["lengths"], order, out, 33)
+        return launch, plain, b, call
+    dst_card = torch.from_numpy(dst).cuda()
+    out = torch.empty((2, rows, L), dtype=torch.float32, device="cuda")
+    return (lambda: tiles._tile_sums_launch(d["qual"], d["lengths"],
+                                            dst_card, out, 33),
+            plain, b, call)
+
+
+def device_work(fn):
+    """torch.profiler's CUDA kernels and memsets of fn(), after a first,
+    unprofiled call that makes any scratch: (kernel names, memset
+    names)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return ([x for x in names if not x.startswith("Mem")],
+            [x for x in names if x.startswith("Memset")])
+
+
+def tiles_library_call(d, offset=33):
+    """The one PyTorch call that computes the tile sums, as the reference
+    computes them (blazeseq_tpu/ops/tiles.py::_tile_contract): torch.mm of
+    the one-hot [T, n] tile matrix by [n, 2L], the masked, capped Phred and
+    the mask side by side, in float32 with TF32 off, its inputs made here
+    (outside any timing). Returns (the call, a check that raises unless its
+    result equals (sums, counts) given as numpy arrays)."""
+    import torch
+
+    from blazeseq_tpu_torch.ops import tiles
+    from blazeseq_tpu_torch.ops.stats import MAX_PHRED
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qual, lengths = d["qual"], d["lengths"]
+    n, L = qual.shape
+    _, dst, rows = tiles._tile_rows(d["tiles"], n, None, None)
+    dst = torch.from_numpy(dst.astype(np.int64)).to(qual.device)
+    onehot = torch.zeros((rows + 1, n), dtype=torch.float32,
+                         device=qual.device)
+    onehot[dst, torch.arange(n, device=qual.device)] = 1
+    onehot = onehot[:rows].contiguous()
+    mask = (torch.arange(L, device=qual.device)[None, :]
+            < lengths.to(torch.int64)[:, None])
+    q = qual.to(torch.int64)
+    phred = torch.where(mask & (q >= offset), q - offset, 0).clamp_(
+        max=MAX_PHRED - 1)
+    rhs = torch.cat([phred, mask], 1).to(torch.float32).contiguous()
+
+    def call():
+        return torch.mm(onehot, rhs)
+
+    def check(sums, counts):
+        got = call().cpu().numpy()
+        if not (np.array_equal(got[:, :L], sums)
+                and np.array_equal(got[:, L:], counts)):
+            raise AssertionError("the tiles library call differs from the "
+                                 "plain sums")
+    return call, check
 
 
 def phase_kernel_cli_ops(seed, files):
     """csrc/trim.cu, demux.cu, tiles.cu and kmer.cu against their plain
     torch versions on the card, every leaf exact: CLI_OP_EDGE_CASES (at
-    views 0 and 1 byte off alignment), the first 4,096 reads of the
+    views 0, 1 and 13 bytes off alignment), the first 4,096 reads of the
     1M-read file as the CLI pads them (150 bp to 256 columns; demux also
     its own 16,384-read batch) and a 32,768 x 1,024 batch; each call of
     CLI_OP_TIMED timed at both shapes (demux at 16,384 x 256 and 32,768 x
-    1,024) beside its plain version and its bound. Returns a record a
-    kernel source (trim: its three modes together, each under `modes`)."""
+    1,024) beside its plain version and its bound (the tile sums also
+    beside torch.mm, tiles_library_call); at 4,096 x 256 each trim mode
+    and the tile sums run one kernel a call and no fill (device_work).
+    Returns a record a kernel source (trim: its three modes together, each
+    under `modes`)."""
     import torch
 
     cases = 0
     for label in CLI_OP_EDGE_CASES:
         op, arrays, kw = cli_op_case(label, seed)
-        for view in (0, 1):
+        for view in CLI_OP_VIEW_OFFSETS:
             d = cli_op_tensors(arrays, "cuda", view)
             for name, f, plain in cli_op_calls(op, d, kw):
                 same_leaves(f(), plain(), "%s, %s, view %d"
@@ -3706,6 +3881,15 @@ def phase_kernel_cli_ops(seed, files):
         shapes[op] = [dict(zip(("tiles", "seq", "qual", "lengths"), src[:4]))]
         big = cli_op_card_batch(op, 32768, 1024, seed)
         shapes[op].append(cli_op_tensors(big, "cuda"))
+    for op, fn, kw in CLI_OP_TIMED:
+        if op in ("trim", "tiles"):
+            call = _timed_cli_op(op, fn, kw, shapes[op][0])[0 if op == "trim"
+                                                             else 3]
+            kernels, fills = device_work(call)
+            if len(kernels) != 1 or fills:
+                raise AssertionError("%s: %s kernels and %s fills a call, "
+                                     "want one kernel and no fill"
+                                     % (fn, kernels, fills))
     recs = {}
     for op, fn, kw in CLI_OP_TIMED:
         for d in shapes[op]:
@@ -3719,12 +3903,19 @@ def phase_kernel_cli_ops(seed, files):
                        max_abs_err=err, **b)
             if whole is not None:
                 rec["call_ms"] = cuda_ms(whole, inner=3, trials=3)
+            if op == "tiles":
+                lib, check = tiles_library_call(d)
+                check(*plain()[1:])
+                rec["library_ms"] = cuda_ms(lib)
+                del lib, check
             recs.setdefault(fn, []).append(rec)
-            log("%s %s: kernel %.4f ms, plain %.4f ms, bound %.5f ms (%s)%s"
+            log("%s %s: kernel %.4f ms, plain %.4f ms, bound %.5f ms (%s)%s%s"
                 % (fn, rec["shape"], rec["ms"], rec["plain_ms"],
                    rec["bound_ms"], rec["bound_by"],
                    ", whole call %.4f ms" % rec["call_ms"]
-                   if whole is not None else ""))
+                   if whole is not None else "",
+                   ", torch.mm %.4f ms" % rec["library_ms"]
+                   if "library_ms" in rec else ""))
     torch.cuda.synchronize()
     log("CLI op kernels == plain on %d calls" % cases)
 
@@ -3737,8 +3928,9 @@ def phase_kernel_cli_ops(seed, files):
         out = dict(shape=first[0]["shape"], max_abs_err=0, cases=cases,
                    **{k: sum(r[k] for r in first)
                       for k in ("ms", "plain_ms", "bound_ms")})
-        if "call_ms" in first[0]:
-            out["call_ms"] = first[0]["call_ms"]
+        for k in ("call_ms", "library_ms"):
+            if k in first[0]:
+                out[k] = first[0][k]
         out["bound_by"] = first[0]["bound_by"]
         out["modes" if len(fns) > 1 else "shapes"] = {f: recs[f] for f in fns}
         return out
@@ -4624,8 +4816,11 @@ def main(argv=None):
     log("device-parse kernels:", json.dumps(kparse_notes))
     log("end to end:", json.dumps(e2e))
     log("total %.1f s" % (time.perf_counter() - t_start))
-    # no single PyTorch call computes any of the nineteen functions, so
-    # none has a library time; kernel A has one record per shape of
+    # one PyTorch call computes the tile sums (torch.mm of the one-hot tile
+    # matrix, as the reference's einsum: tiles_library_call), timed in the
+    # CLI ops' phase; no single PyTorch call computes any of the other
+    # eighteen functions, so they have no library time. Kernel A has one
+    # record per shape of
     # KERNEL_A_SHAPES. The ragged, the alignment variant and the three
     # padded-batch panel kernels replace XLA code (no Pallas kernel): their
     # `replaces` name the reference's ragged_qc, its five XLA alignment
@@ -4694,7 +4889,7 @@ def main(argv=None):
         dict(name="per_tile_qual_sums", route="cuda",
              source=KERNEL_TILES_SOURCE,
              replaces="blazeseq_tpu/ops/tiles.py:50-56,59-95",
-             launches=launches["per_tile_qual_sums"], library_ms=None,
+             launches=launches["per_tile_qual_sums"],
              **kcli["per_tile_qual_sums"]),
         dict(name="kmer_counts", route="cuda", source=KERNEL_KMER_SOURCE,
              replaces="blazeseq_tpu/ops/kmer.py:30-63",

@@ -71,11 +71,14 @@ compare two commits on one card). Shapes:
   modes, demux_assign, the per-tile sums, kmer_counts at k = 4) at the
   CLI's 4,096 x 256 (demux 16,384 x 256) batch of chip_smoke.py's 1M
   reads and at 32,768 x 1,024, card alone with its bound (the tiles
-  kernel as its fill and launch, its whole call beside it), checked equal
-  to its plain version where the tree has one; the launches of one call
-  of each (as in `merge`); the walls of `trim` in three modes, `demux` and
-  `tiles` on the 1M reads, twice each, with the sha256 of each command's
-  stdout and output files;
+  kernel as its launch, or a tree's fill and launch, its whole call and
+  its one PyTorch call, torch.mm of the one-hot tile matrix, beside it),
+  checked equal to its plain version where the tree has one; the host ms
+  of each step of a tiles call as the call marks it
+  (`tiles_call_split_ms`); the launches of one call of each (as in
+  `merge`); the walls of `trim` in three modes,
+  `demux` and `tiles` on the 1M reads, twice each, with the sha256 of each
+  command's stdout and output files;
 * the CUDA kernel launches of one `run_file(align_to, adapters,
   duplicates, quartiles)` batch, from torch.profiler: the launches of
   runs over 1 and over 3 padded batches of chip_smoke's planted corpus,
@@ -834,6 +837,37 @@ def _cli_op_launches(cs, reads):
     return launches
 
 
+def _tiles_split(cs, head, repeats=20):
+    """Host ms of one per_tile_qual_sums call on the card (the first 4,096
+    reads of the 1M-read file as the CLI pads them), medians over
+    `repeats`: the whole call and, in a tree whose call marks its steps
+    (tiles.step_marks), each step as the call itself runs it, with no
+    synchronize added (the launch and the copies only queue their work;
+    `wait` is the synchronize that ends the call)."""
+    import statistics
+    import time
+
+    from blazeseq_tpu_torch.ops import tiles
+
+    tl, _, qual, lengths, n_records = head
+    marked = hasattr(tiles, "step_marks")
+    times = {}
+    for _ in range(repeats + 1):
+        if marked:
+            tiles.step_marks = []
+        t0 = time.perf_counter()
+        tiles.per_tile_qual_sums(tl, qual, lengths, 33, n_records=n_records)
+        t1 = time.perf_counter()
+        steps = [("whole_call", t1 - t0)]
+        if marked:
+            marks, tiles.step_marks = tiles.step_marks, None
+            steps += [(name, t - marks[k][1])
+                      for k, (name, t) in enumerate(marks[1:])]
+        for name, dt in steps:
+            times.setdefault(name, []).append(1e3 * dt)
+    return {name: statistics.median(v[1:]) for name, v in times.items()}
+
+
 # the CLI commands whose walls --only cli_ops takes (chip_smoke.CLI_COMMANDS)
 CLI_OP_COMMANDS = ("trim window", "trim bwa", "trim ends", "demux", "tiles")
 
@@ -893,8 +927,14 @@ def _cli_ops(cs, seed):
                 if whole is not None:
                     rec["call_event_ms"] = event_ms(whole, inner=3,
                                                     trials=3)
+                if op == "tiles":
+                    lib, check = cs.tiles_library_call(d)
+                    check(*plain()[1:])
+                    rec["library_device_ms"] = device_ms(lib)
+                    del lib, check
                 out["kernels"]["%s_%dx%d" % (fn, n, L)] = rec
                 del call, plain, whole
+        out["tiles_call_split_ms"] = _tiles_split(cs, head)
         out["cli_op_launches_4096x256"] = _cli_op_launches(cs, reads)
         walls = {}
         cmds = dict(cs.CLI_COMMANDS)

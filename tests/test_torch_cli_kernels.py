@@ -5,18 +5,25 @@ np.array_equal, and their dispatch contract.
 
 The cases are chip_smoke.py's CLI_OP_EDGE_CASES, made from a seed with
 numpy: lengths 0, negative and over L, quality bytes below the offset,
-all-low rows, bwa_trim ties, windows longer than the read, widths of 1 and
-12, offset 64; N in barcodes and reads, reads shorter than the barcode,
-ties, K = 1, 384 barcodes of 32 bases, an odd width with lowercase and
-other bytes; k = 1..8, n_records as an int and as a tensor; grouped,
-shuffled and unknown tiles. On the CPU each op runs its plain torch version
-(`*_torch`) and counts no launch; other devices raise.
+all-low rows, bwa_trim ties, windows longer than the read, widths of 1, 3,
+5, 12 and 13, 1,024 columns with windows of 33, 100 and 1,024 bases,
+2,176 and 1,500 columns (rows the kernel takes in rounds of 1,024
+columns) with windows across the rounds' edges and wider than a round,
+offsets 0, 64, 255, 256, -5 and one where byte - offset wraps in int32,
+thresholds outside 0-255; N in barcodes and reads, reads shorter than the
+barcode, ties, K = 1, 384 barcodes of 32 bases, an odd width with
+lowercase and other bytes; k = 1..8, n_records as an int and as a tensor;
+grouped, shuffled and unknown tiles, negative tile numbers, a tile a row
+(T = n = 4,096), one tile, unknown tiles interleaved at 32,768 x 1,024. On
+the CPU each op runs its plain torch version (`*_torch`) and counts no
+launch; other devices raise.
 
 The card cases (*on_card*) hold each kernel (csrc/trim.cu, demux.cu,
 tiles.cu, kmer.cu) against its plain version on the same CUDA tensors, on
 the edge cases and at the CLI's shapes (4,096 x 256, demux's 16,384 x 256,
-32,768 x 1,024), each also 1 and 13 bytes off 16-byte alignment; they skip
-where there is no CUDA device or no nvcc.
+32,768 x 1,024, 4,096 x 2,048), each also 1 and 13 bytes off 16-byte
+alignment, and show that each trim mode and the tile sums run one kernel a
+call and no fill; they skip where there is no CUDA device or no nvcc.
 """
 
 import importlib.util
@@ -76,7 +83,8 @@ def _reference_calls(op, arrays, kw):
     out = []
     if op == "trim":
         q, lens = jnp.asarray(arrays["qual"]), jnp.asarray(arrays["lengths"])
-        for fn, fkw in CS.trim_modes(arrays["qual"].shape[1]):
+        for fn, fkw in CS.trim_modes(arrays["qual"].shape[1],
+                                     kw.get("modes")):
             rkw = {k: (v if k == "window" else jnp.int32(v))
                    for k, v in fkw.items()}
             r = getattr(ref_trim, fn)(q, lens, jnp.int32(kw["offset"]), **rkw)
@@ -151,6 +159,58 @@ def test_cases_reach_their_edges():
     assert (t[1:] != t[:-1]).sum() > 50
     _, a, kw = case("kmer: n_records as a tensor")
     assert kw["tensor"] and kw["n_records"] < len(a["lengths"])
+    for width in (3, 5, 13):
+        _, a, _ = case("trim: L = %d" % width)
+        assert a["qual"].shape[1] == width
+    for off in (0, 255, 256, -5):
+        _, a, kw = case("trim: offset %d" % off)
+        assert kw["offset"] == off and a["qual"].max() > 200
+    _, a, kw = case("trim: offset -2^31 + 100 (Phred wraps)")
+    assert kw["offset"] == -(1 << 31) + 100 and kw["modes"]
+    assert (a["qual"] < 100).any() and (a["qual"] >= 150).any()
+    _, a, kw = case("trim: thresholds outside 0-255")
+    fkws = [fkw for _, fkw in kw["modes"]]
+    assert any(v < 0 for f in fkws for k, v in f.items() if k != "window")
+    assert any(v > 255 for f in fkws for k, v in f.items() if k != "window")
+    # the first failing windows of 33 and 100 bases fall in many of the
+    # 32-column lane segments; a window as wide as the batch fits the full
+    # rows
+    _, a, kw = case("trim: L = 1,024, windows across lane segments")
+    assert a["qual"].shape[1] == 1024 and (a["lengths"] == 1024).sum() > 20
+    q, lens = torch.from_numpy(a["qual"]), torch.from_numpy(a["lengths"])
+    for w in (33, 100):
+        cut = trim.sliding_window_trim_torch(q, lens, 33, 20, window=w)
+        assert len(np.unique(cut.numpy() // 32)) > 10
+    # past 1,024 columns the rows take rounds: each mode's cuts fall in
+    # both the first round and later ones, and a window is wider than a
+    # round
+    for label in ("trim: L = 2,176, windows across rounds",
+                  "trim: L = 1,500, windows across rounds"):
+        _, a, kw = case(label)
+        L = a["qual"].shape[1]
+        assert L == int(label.split()[3].replace(",", ""))
+        assert any(f.get("window", 0) > 1024
+                   for _, f in CS.trim_modes(L, kw["modes"]))
+        q, lens = torch.from_numpy(a["qual"]), torch.from_numpy(a["lengths"])
+        for cut in (trim.sliding_window_trim_torch(q, lens, 33, 20,
+                                                   window=100),
+                    trim.sliding_window_trim_torch(q, lens, 33, 22,
+                                                   window=1100),
+                    trim.bwa_trim_torch(q, lens, 33, 20)):
+            cut = cut.numpy()
+            assert (cut < 1024).sum() > 5 and (cut >= 1024).sum() > 5
+    _, a, _ = case("tiles: negative tile numbers")
+    t = a["tiles"]
+    assert {-2, -7, -100000, -(1 << 31)} <= set(t.tolist())
+    assert (t >= 0).sum() > 50
+    _, a, _ = case("tiles: T = n")
+    assert len(np.unique(a["tiles"])) == len(a["tiles"]) == 4096
+    _, a, _ = case("tiles: every row one tile")
+    assert len(np.unique(a["tiles"])) == 1
+    _, a, kw = case("tiles: unknown tiles interleaved, 32,768 x 1,024")
+    assert a["qual"].shape == (32768, 1024) and kw["n_records"] < 32768
+    t = a["tiles"]
+    assert ((t[1:] < 0) != (t[:-1] < 0)).sum() > 10000
 
 
 def test_cpu_tensors_run_the_plain_versions_and_other_devices_raise():
@@ -192,21 +252,36 @@ def test_barcode_words_layout_and_cache():
 
 
 def test_tile_rows_map():
-    """The host's row -> tile-row map and the order the tiles kernel reads:
-    unknown tiles and rows past n_records go to the dropped row, which the
-    order leaves out."""
+    """The host's row -> tile-row map, in file order, that the tiles kernel
+    reads: unknown tiles and rows past n_records go to the dropped row."""
     t = np.array([2101, 1101, -1, 2101, 1101, 7], np.int32)
     uniq, dst, rows = tiles._tile_rows(t, 6, None, 5)
     assert uniq.tolist() == [1101, 2101] and rows == 2
     assert dst.dtype == np.int32 and dst.tolist() == [1, 0, 2, 1, 0, 2]
-    order = tiles._tile_order(dst, rows)
-    # the rows of known tiles, grouped by tile, in batch order within one
-    assert order.dtype == np.int32
-    assert order.tolist() == [[1, 4, 0, 3], [0, 0, 1, 1]]
+    # every negative tile number is unknown, as -1 is
+    t = np.array([-2, 5, -7, 5, -100000, 3, -(1 << 31)], np.int32)
+    uniq, dst, rows = tiles._tile_rows(t, 7, None, None)
+    assert uniq.tolist() == [3, 5] and dst.tolist() == [2, 1, 2, 1, 2, 0, 2]
     uniq, dst, rows = tiles._tile_rows(np.full(3, -1, np.int32), 3, None,
                                        None)
     assert len(uniq) == 0 and rows == 1 and dst.tolist() == [1, 1, 1]
-    assert tiles._tile_order(dst, rows).shape == (2, 0)
+
+
+def test_tile_buffers_are_kept_and_grow():
+    """The tiles kernel's scratch by name, device and stream: made zeroed
+    once, reused while large enough, made anew (zeroed) when asked for
+    more."""
+    tiles._KEPT.clear()
+    cpu = torch.device("cpu")
+    sums = tiles._kept("sums", cpu, 7, 100, torch.int64)
+    assert sums.dtype == torch.int64 and sums.numel() >= 100
+    assert not sums.any()
+    assert tiles._kept("sums", cpu, 7, 50, torch.int64) is sums
+    assert tiles._kept("sums", cpu, 8, 50, torch.int64) is not sums
+    assert tiles._kept("tickets", cpu, 7, 50, torch.int32) is not sums
+    grown = tiles._kept("sums", cpu, 7, 150, torch.int64)
+    assert grown.numel() >= 150 and not grown.any()
+    tiles._KEPT.clear()
 
 
 # ------------------------------------------------------------ on the card
@@ -244,7 +319,7 @@ def _on_card(op, arrays, kw, view, label):
         CS.same_leaves(got, plain(), "%s, %s, view %d" % (label, name, view))
 
 
-@pytest.mark.parametrize("view", (0, 1))
+@pytest.mark.parametrize("view", CS.CLI_OP_VIEW_OFFSETS)
 @pytest.mark.parametrize("label", CS.CLI_OP_EDGE_CASES)
 def test_cli_op_case_on_card(card, label, view):
     op, arrays, kw = CS.cli_op_case(label, SEED)
@@ -264,6 +339,24 @@ CARD_OPTIONS = dict(trim=dict(offset=33),
 def test_cli_op_card_shapes_on_card(card, op, shape, view):
     arrays = CS.cli_op_card_batch(op, *shape, SEED)
     _on_card(op, arrays, CARD_OPTIONS[op], view, "%s %dx%d" % ((op,) + shape))
+
+
+def test_trim_and_tiles_one_kernel_no_fill_on_card(card):
+    """At the CLI's shape each trim mode and the tile sums run one kernel
+    a call on the card and no fill (the tile sums: no host sort, no zero
+    fill; the row map up and the sums down are its only copies)."""
+    arrays = CS.cli_op_card_batch("tiles", 4096, 256, SEED)
+    d = CS.cli_op_tensors(arrays, "cuda")
+    calls = dict(
+        clip_ends=lambda: trim.clip_ends(d["qual"], d["lengths"], 33),
+        sliding_window_trim=lambda: trim.sliding_window_trim(
+            d["qual"], d["lengths"], 33, 15, window=4),
+        bwa_trim=lambda: trim.bwa_trim(d["qual"], d["lengths"], 33, 20),
+        per_tile_qual_sums=lambda: tiles.per_tile_qual_sums(
+            d["tiles"], d["qual"], d["lengths"], 33))
+    for name, fn in calls.items():
+        kernels, fills = CS.device_work(fn)
+        assert len(kernels) == 1 and not fills, (name, kernels, fills)
 
 
 def test_cli_kernels_refuse_bad_batches_on_card(card):
