@@ -99,14 +99,15 @@ _SIGNATURES = {
                        _F, _P),
     # qual, lengths, out0, out1, n, L, mode, offset, a, b, window, stream
     "bs_trim": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P),
-    # seq, lengths, words, assign, best, n, L, K, bl, max_mm, stream
-    "bs_demux_assign": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
+    # seq, lengths, words, assign, best, n, L, K, bl, max_mm, planes,
+    # stream
+    "bs_demux_assign": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P),
     # qual, lengths, dst, out, sums, tickets, n, L, T, offset, max_phred,
     # sm_count, stream
     "bs_tile_sums": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P),
-    # seq, lengths, n_valid_ptr, n_valid_bytes, n_valid, out, n, L, k,
-    # sm_count, stream
-    "bs_kmer_counts": (_P, _P, _P, _I, _LL, _P, _LL, _I, _I, _I, _P),
+    # seq, lengths, n_valid_ptr, n_valid_bytes, n_valid, out, state, n, L,
+    # k, sm_count, stream
+    "bs_kmer_counts": (_P, _P, _P, _I, _LL, _P, _P, _LL, _I, _I, _I, _P),
 }
 
 

@@ -55,6 +55,25 @@ def check_cuda_batch(who: str, rows, ints) -> None:
         raise ValueError("%s: inputs on different devices" % who)
 
 
+# the kernels' scratch, kept by (name, device, stream) for the stream's
+# later calls and zeroed once: csrc/tiles.cu's int64 sums and tickets,
+# which every launch leaves zero, and csrc/kmer.cu's start-ticket state,
+# which every launch leaves ready for the next
+_KEPT = {}
+
+
+def _kept(name, device, stream, numel, dtype):
+    """A zeroed 1-D tensor of at least numel elements on `device`, made
+    anew only to grow."""
+    key = (name, device.index, stream)
+    have = _KEPT.get(key)
+    if have is None or have.numel() < numel:
+        size = max(numel, 1 if have is None else 2 * have.numel())
+        have = torch.zeros(size, dtype=dtype, device=device)
+        _KEPT[key] = have
+    return have
+
+
 def resolve_device(device, who: str) -> torch.device:
     """The torch device a model runs on. "cuda" needs a CUDA card and raises
     without one; "cpu" (the plain torch versions of the kernels) must be

@@ -9,8 +9,10 @@ barcode base but 'N'. A read shorter than the barcode never matches.
 `demux_assign` dispatches on the reads' device: CUDA tensors run one launch
 of the hand-written kernel in csrc/demux.cu (counted in
 `demux_assign.launches`; the barcode set is uploaded once a set and
-device) or the call raises; CPU tensors run the plain torch version
-`demux_assign_torch` ([n, K, bl] compares).
+device, as bit-planes of base codes or, for a small set, a set with a
+byte outside ACGTN or barcodes over 256 bases, as bytes; any set the
+plain version takes) or the call raises; CPU tensors run the plain torch
+version `demux_assign_torch` ([n, K, bl] compares).
 
 Host twin: `demux_assign_host` (pure Python).
 """
@@ -59,44 +61,65 @@ def demux_assign_torch(seq, lengths, barcodes: Sequence[bytes],
             best.to(torch.int32))
 
 
-# the sets csrc/demux.cu takes: barcodes of up to 32 bases (a read's words
-# in registers), K * ceil(bl / 4) words in 48 KB of shared memory
-_MAX_CARD_BARCODE_LEN = 32
-_MAX_CARD_SET_WORDS = 48 * 1024 // 8
+# sets of up to 2^20 barcodes of up to 256 bases, every byte one of ACGTN,
+# take the planes layout of csrc/demux.cu (a read's planes in registers, a
+# barcode's index in 20 bits of a key), but for sets of at most 8 barcodes
+# of at most 16 bases (such as the CLI's 4 x 8), which the bytes layout
+# holds in registers with no plane to build; any other set takes bytes
+_MAX_PLANES_LEN = 256
+_MAX_PLANES_SET = 1 << 20
+_MAX_DIRECT_SET, _MAX_DIRECT_LEN = 8, 16
+
+
+def _pack_set(codes, planes):
+    """The set's words in one layout (numpy, int32). planes: [K, ceil(bl /
+    32), 4], for 32 positions at a time the bit-planes 0, 1 and 2 of each
+    base's code (b >> 1) & 7, then a mask of the positions that hold a base
+    other than 'N'. bytes: [2, K, ceil(bl / 4)], the upper-cased bytes four
+    a word, then a mask word with 0xFF in each byte of a base other than
+    'N'."""
+    K, bl = codes.shape
+    care = codes != N_BYTE
+    if planes:
+        W = -(-bl // 32)
+        bits = np.zeros((4, K, 32 * W), np.uint64)
+        c = (codes >> 1) & 7
+        for p in range(3):
+            bits[p, :, :bl] = (c >> p) & 1
+        bits[3, :, :bl] = care
+        words = (bits.reshape(4, K, W, 32)
+                 << np.arange(32, dtype=np.uint64)).sum(-1)
+        words = words.astype(np.uint32).transpose(1, 2, 0)
+        return np.ascontiguousarray(words).view(np.int32)
+    W = -(-bl // 4)
+    padded = np.zeros((2, K, 4 * W), np.uint8)
+    padded[0, :, :bl] = codes
+    padded[1, :, :bl] = np.where(care, 0xFF, 0)
+    return padded.view(np.int32).copy()
 
 
 @functools.lru_cache(maxsize=64)
 def _barcode_words(barcodes: Tuple[bytes, ...], device: torch.device):
-    """The set as csrc/demux.cu reads it, on `device`: int32 [2, K, W], W =
-    ceil(bl / 4), the upper-cased bytes four a word, then a mask word with
-    0xFF in each byte of a base other than 'N'. Made once a set and
-    device."""
+    """The set as csrc/demux.cu reads it, on `device`, made once a set and
+    device: (planes, words) in the layout of `_pack_set`, the planes for bl
+    <= 256, K <= 2^20 and every upper-cased byte one of ACGTN, but not for
+    K <= 8 with bl <= 16; else the bytes."""
     codes, bl = _prep_barcodes(barcodes)
-    W = -(-bl // 4)
-    padded = np.zeros((2, len(barcodes), 4 * W), np.uint8)
-    padded[0, :, :bl] = codes
-    padded[1, :, :bl] = np.where(codes != N_BYTE, 0xFF, 0)
-    return torch.from_numpy(padded.view(np.int32).copy()).to(device)
+    K = len(barcodes)
+    planes = bool(
+        bl <= _MAX_PLANES_LEN and K <= _MAX_PLANES_SET
+        and not (K <= _MAX_DIRECT_SET and bl <= _MAX_DIRECT_LEN)
+        and np.isin(codes, np.frombuffer(b"ACGTN", np.uint8)).all())
+    return planes, torch.from_numpy(_pack_set(codes, planes)).to(device)
 
 
-def _demux_assign_cuda(seq, lengths, barcodes, max_mismatches):
-    """One launch of csrc/demux.cu."""
-    barcodes = tuple(bytes(b) for b in barcodes)
-    words = _barcode_words(barcodes, seq.device)
-    K = words.shape[1]
-    bl = len(barcodes[0])
+def _launch(seq, lengths, planes, words, K, bl, max_mismatches):
+    """One launch of csrc/demux.cu on a set in the layout `planes`."""
     lengths = torch.as_tensor(lengths).to(torch.int32)
     check_cuda_batch("demux_assign", [("seq", seq)], [("lengths", lengths)])
     n, L = seq.shape
     if L < bl:
         raise ValueError("reads narrower than the barcode length")
-    if bl > _MAX_CARD_BARCODE_LEN:
-        raise ValueError("demux_assign: barcodes of %d bases; the kernel "
-                         "takes up to %d" % (bl, _MAX_CARD_BARCODE_LEN))
-    if K * words.shape[2] > _MAX_CARD_SET_WORDS:
-        raise ValueError("demux_assign: %d barcodes of %d bases; the kernel "
-                         "takes up to %d words of 4 bases" % (
-                             K, bl, _MAX_CARD_SET_WORDS))
     # every best is in [0, bl + 1]: a bound past that range acts as its end
     max_mm = min(max(int(max_mismatches), -1), bl + 1)
     out = torch.empty((2, n), dtype=torch.int32, device=seq.device)
@@ -107,10 +130,17 @@ def _demux_assign_cuda(seq, lengths, barcodes, max_mismatches):
             err = lib.bs_demux_assign(
                 seq.data_ptr(), lengths.data_ptr(), words.data_ptr(),
                 out[0].data_ptr(), out[1].data_ptr(), n, L, K, bl, max_mm,
-                _kernels.stream_ptr(dev))
+                int(planes), _kernels.stream_ptr(dev))
         _kernels.check(err, "bs_demux_assign")
         demux_assign.launches += 1
     return out[0], out[1]
+
+
+def _demux_assign_cuda(seq, lengths, barcodes, max_mismatches):
+    barcodes = tuple(bytes(b) for b in barcodes)
+    planes, words = _barcode_words(barcodes, seq.device)
+    return _launch(seq, lengths, planes, words, len(barcodes),
+                   len(barcodes[0]), max_mismatches)
 
 
 def demux_assign(seq, lengths, barcodes: Sequence[bytes],

@@ -4,11 +4,12 @@ blazeseq_tpu/ops/kmer.py).
 Exact counts of all 4^k DNA k-mers (k <= 8): 2-bit base codes (A=0 C=1 G=2
 T=3, case-insensitive; anything else poisons the window). `kmer_counts`
 dispatches on the batch's device: CUDA tensors run one launch of the
-hand-written kernel in csrc/kmer.cu after one zero fill of the bins
-(counted in `kmer_counts.launches`) or the call raises; CPU tensors run the
-plain torch version `kmer_counts_torch`: rolling window codes from k
-shifted adds and one bincount, windows that leave the read or hold a
-non-ACGT byte taking a sentinel bin past the last, which is dropped.
+hand-written kernel in csrc/kmer.cu, which writes every bin (no fill; its
+start tickets' state is kept by device and stream; counted in
+`kmer_counts.launches`) or the call raises; CPU tensors run the plain torch version
+`kmer_counts_torch`: rolling window codes from k shifted adds and one
+bincount, windows that leave the read or hold a non-ACGT byte taking a
+sentinel bin past the last, which is dropped.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from .common import check_cuda_batch, length_mask
+from .common import _kept, check_cuda_batch, length_mask
 
 
 def _check_k(k):
@@ -55,9 +56,9 @@ def kmer_counts_torch(seq, lengths, n_records=None, *,
 
 
 def _kmer_counts_cuda(seq, lengths, n_records, k):
-    """One zero fill of the bins and one launch of csrc/kmer.cu. A row
-    count on the card is read there, with no sync; one on the host is
-    passed by value."""
+    """One launch of csrc/kmer.cu into `torch.empty` bins (a batch with no
+    row or no column: zeros, no launch). A row count on the card is read
+    there, with no sync; one on the host is passed by value."""
     lengths = lengths.to(torch.int32)
     check_cuda_batch("kmer_counts", [("seq", seq)], [("lengths", lengths)])
     n, L = seq.shape
@@ -77,17 +78,24 @@ def _kmer_counts_cuda(seq, lengths, n_records, k):
             value = int(n_records)
     elif n_records is not None:
         value = int(n_records)
-    out = torch.zeros(4 ** k, dtype=torch.int32, device=dev)
-    if n and L:
-        lib = _kernels.load()
-        with _kernels.on_device(dev):
-            err = lib.bs_kmer_counts(
-                seq.data_ptr(), lengths.data_ptr(), ptr, width,
-                max(min(value, n), -1), out.data_ptr(), n, L, k,
-                _kernels.sm_count(dev.index), _kernels.stream_ptr(dev))
-        _kernels.check(err, "bs_kmer_counts")
-        kmer_counts.launches += 1
+    if not (n and L):
+        return torch.zeros(4 ** k, dtype=torch.int32, device=dev)
+    out = torch.empty(4 ** k, dtype=torch.int32, device=dev)
+    lib = _kernels.load()
+    stream = _kernels.stream_ptr(dev)
+    # the start tickets and the generation whose out is zero, which each
+    # launch leaves ready for the next
+    state = _kept("kmer_state", dev, stream, 2, torch.int64)
+    with _kernels.on_device(dev):
+        err = lib.bs_kmer_counts(
+            seq.data_ptr(), lengths.data_ptr(), ptr, width,
+            max(min(value, n), -1), out.data_ptr(), state.data_ptr(), n, L,
+            k, _kernels.sm_count(dev.index), stream)
+    _kernels.check(err, "bs_kmer_counts")
+    kmer_counts.launches += 1
     return out
+
+
 
 
 def kmer_counts(seq, lengths, n_records=None, *, k: int = 4) -> torch.Tensor:

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from .common import check_cuda_batch
+from .common import _kept, check_cuda_batch
 from .stats import MAX_PHRED
 
 
@@ -96,24 +96,6 @@ def per_tile_qual_sums_torch(tiles: np.ndarray, qual, lengths, offset: int,
     sums, counts = (a[:rows].to(torch.float32).cpu().numpy()
                     for a in (sums, counts))
     return np.asarray(unique_tiles).astype(np.int64), sums, counts
-
-
-# the kernel's scratch, kept by (name, device, stream) for the stream's
-# later calls: int64 sums [T, L] of the slabs and one ticket a tile range
-# and span, zeroed once and left zero by every launch
-_KEPT = {}
-
-
-def _kept(name, device, stream, numel, dtype):
-    """A zeroed 1-D tensor of at least numel elements on `device`, made
-    anew only to grow."""
-    key = (name, device.index, stream)
-    have = _KEPT.get(key)
-    if have is None or have.numel() < numel:
-        size = max(numel, 1 if have is None else 2 * have.numel())
-        have = torch.zeros(size, dtype=dtype, device=device)
-        _KEPT[key] = have
-    return have
 
 
 def _tile_sums_launch(qual, lengths, dst, out, offset) -> None:

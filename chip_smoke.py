@@ -1291,12 +1291,19 @@ CLI_OP_EDGE_CASES = (
     "tiles: T = n",
     "tiles: every row one tile",
     "tiles: negative tile numbers",
-    "tiles: unknown tiles interleaved, 32,768 x 1,024")
+    "tiles: unknown tiles interleaved, 32,768 x 1,024",
+    "kmer: poly-G and poly-A rows",
+    "kmer: k = 7 and 8, every bin hit",
+    "demux: barcodes of 48 bases",
+    "demux: 4,096 barcodes of 16 bases",
+    "demux: a barcode byte outside ACGTN")
 # the card-only ones: the CLI's batch shapes (trim and tiles take 4,096
-# reads padded to 256, demux 16,384 x 256), reads up to 1 kb and up to 2 kb
-# (trim takes rows wider than 1,024 columns in rounds), and each at a view
-# 1 and 13 bytes off 16-byte alignment
-CLI_OP_CARD_SHAPES = ((4096, 256), (16384, 256), (32768, 1024), (4096, 2048))
+# reads padded to 256, demux 16,384 x 256), the analysis path's 65,536 x
+# 256 (kmer_counts), reads up to 1 kb and up to 2 kb (trim takes rows wider
+# than 1,024 columns in rounds), and each at a view 1 and 13 bytes off
+# 16-byte alignment
+CLI_OP_CARD_SHAPES = ((4096, 256), (16384, 256), (65536, 256), (32768, 1024),
+                      (4096, 2048))
 CLI_OP_VIEW_OFFSETS = (0, 1, 13)
 TRIM_MODES = (
     ("clip_ends", dict(leading=3, trailing=3)),
@@ -1354,12 +1361,45 @@ TRIM_MODES_WRAP = (
     ("sliding_window_trim", dict(mean_q=15, window=4)),
     ("bwa_trim", dict(threshold=20)))
 KMER_KS = tuple(range(1, 9))
+
+
+def barcode_set(K, bl, seed=0):
+    """K distinct barcodes of bl bases (ACGT, an N in every 8th), sorted."""
+    rng = np.random.default_rng([seed, 41, K, bl])
+    out = set()
+    while len(out) < K:
+        codes = rng.choice(np.frombuffer(b"ACGT", np.uint8), (K, bl))
+        codes[::8, bl // 2] = ord("N")
+        out.update(c.tobytes() for c in codes)
+    return sorted(out)[:K]
+
+
+# the barcode sets the card shapes run: the CLI's 4 x 8, and two the kernel
+# before took no card for (48 bases; 4,096 x 16 = 16,384 words of 4 bases)
+DEMUX_CARD_SETS = (("4 x 8", DEMUX_BARCODES, (0, 1)),
+                   ("8 x 48", tuple(barcode_set(8, 48)), (1,)),
+                   ("4,096 x 16", tuple(barcode_set(4096, 16)), (1,)))
 # the trim, tiles and kmer bounds' int32 operations a byte in length: the
 # Phred subtract, a compare and an add or select (kmer: the code, a shift,
-# an or and the run); demux's a word of a barcode: a compare, an and, a
-# popc and an add
+# an or and the run); demux's, a barcode and read, by the layout its set
+# takes (demux_planes): bytes, a 4-byte word: a compare, an and, a popc and
+# an add; planes, a 32-position word: three three-input logic operations
+# (the planes' XORs ORed with the other plane), an and with the mask, a
+# popc and an add (or the key's multiply-add), then three min / max
 CLI_OPS_PER_BYTE = 3
 DEMUX_OPS_PER_WORD = 4
+DEMUX_PLANE_OPS_PER_WORD = 6
+DEMUX_PLANE_OPS_PER_BARCODE = 3
+
+
+def demux_planes(barcodes):
+    """Whether csrc/demux.cu takes this set as bit-planes (ops/demux.py's
+    rule: bl <= 256, K <= 2^20, every upper-cased byte one of ACGTN, not K
+    <= 8 with bl <= 16) rather than bytes."""
+    bl, K = len(barcodes[0]), len(barcodes)
+    return (bl <= 256 and K <= 1 << 20 and not (K <= 8 and bl <= 16)
+            and set(b"".join(bytes(b) for b in barcodes).upper())
+            <= set(b"ACGTN"))
 
 
 def trim_modes(L, modes=None):
@@ -1375,6 +1415,27 @@ def _qual_rows(rng, n, L, lo=33, hi=75):
 
 def _bases(rng, shape, alphabet=b"ACGT"):
     return rng.choice(np.frombuffer(alphabet, np.uint8), shape)
+
+
+def de_bruijn(k, n):
+    """A de Bruijn sequence B(k, n): k^n symbols in 0..k-1, each n-mer
+    once cyclically (the standard recursive construction)."""
+    a = [0] * k * n
+    seq = []
+
+    def db(t, p):
+        if t > n:
+            if n % p == 0:
+                seq.extend(a[1:p + 1])
+            return
+        a[t] = a[t - p]
+        db(t + 1, p)
+        for j in range(a[t - p] + 1, k):
+            a[t] = j
+            db(t + 1, t)
+
+    db(1, 1)
+    return seq
 
 
 def cli_op_case(label, seed):
@@ -1452,6 +1513,21 @@ def cli_op_case(label, seed):
         elif label == "demux: odd width, lowercase and other bytes":
             barcodes = [b"acgtacgtA", b"TTGGCCAAn", b"GATTACAG-"]
             L = 37
+        elif label == "demux: barcodes of 48 bases":
+            barcodes = [bytes(_bases(rng, 48)) for _ in range(8)]
+            barcodes[5] = barcodes[2][:40] + b"NNNNNNNN"
+            barcodes[6] = b"n" + barcodes[6][1:].lower()
+        elif label == "demux: 4,096 barcodes of 16 bases":
+            barcodes = barcode_set(4096, 16, seed)
+            L, mms = 40, (0, 1, 2)
+        elif label == "demux: a barcode byte outside ACGTN":
+            # '@', 'Z', 0xC1 and 0x0D match the read bytes that & 0xDF
+            # makes them ('z' and 0xE1 too); '-' matches no read byte
+            barcodes = [bytes(_bases(rng, 40)) for _ in range(6)]
+            for i, b in enumerate(b"@Z\xc1\x0d-R"):
+                barcodes[i] = (barcodes[i][:3 + 5 * i] + bytes([b])
+                               + barcodes[i][4 + 5 * i:])
+            L = 48
         bl = len(barcodes[0])
         seq = _bases(rng, (n, L), b"ACGTNacgtn")
         lens = rng.integers(bl, L + 1, n)
@@ -1472,15 +1548,40 @@ def cli_op_case(label, seed):
         elif label == "demux: odd width, lowercase and other bytes":
             seq[::7, 3] = ord("-")
             seq[1::7] = _bases(rng, (len(seq[1::7]), L), b"acgtn-\x00\xff")
+        elif label == "demux: a barcode byte outside ACGTN":
+            seq[1::3, 8] = np.frombuffer(b"zZ\xe1\xc1@", np.uint8)[
+                rng.integers(0, 5, len(seq[1::3]))]
         return "demux", dict(seq=seq, lengths=lens.astype(np.int32)), dict(
             barcodes=barcodes, max_mismatches=mms)
     if op == "kmer":
         n, L = 48, 40
         if label == "kmer: L = 7":
             L = 7
+        elif label == "kmer: poly-G and poly-A rows":
+            n, L = 64, 150
         seq = _bases(rng, (n, L), b"ACGTacgt" * 3 + b"Nn-X")
         lens = rng.integers(0, L + 1, n)
         n_records, ks = 41, (2, 5, 8)
+        if label == "kmer: poly-G and poly-A rows":
+            # whole rows of one base, either case, and poly-G tails
+            seq[::4] = ord("G")
+            seq[1::4] = ord("A")
+            seq[2::4] = _bases(rng, (len(seq[2::4]), L), b"Gg")
+            for i in range(3, n, 4):
+                seq[i, rng.integers(0, L):] = ord("G")
+            lens[::5] = L + 10
+            n_records, ks = None, (1, 4, 7, 8)
+        elif label == "kmer: k = 7 and 8, every bin hit":
+            # rows that hold every 8-mer: a de Bruijn sequence B(4, 8) cut
+            # into rows that overlap by 7 bases, half of them lower case
+            cyc = np.frombuffer(b"ACGT", np.uint8)[de_bruijn(4, 8)]
+            L = 272
+            starts = np.arange(0, len(cyc), L - 7)
+            seq = cyc[(starts[:, None] + np.arange(L)[None, :]) % len(cyc)]
+            seq[::2] |= 0x20
+            n = len(seq)
+            lens = np.full(n, L)
+            n_records, ks = None, (7, 8)
         if label == "kmer: k = 1..8":
             n_records, ks = None, KMER_KS
         elif label == "kmer: lengths over L and negative":
@@ -1525,9 +1626,10 @@ def cli_op_case(label, seed):
     raise ValueError(label)
 
 
-def cli_op_card_batch(op, n, L, seed):
+def cli_op_card_batch(op, n, L, seed, barcodes=DEMUX_BARCODES):
     """A batch of the CLI ops' card shapes: arrays as cli_op_case gives
-    them, reads of L / 2 to L bases (some longer than L, some empty)."""
+    them, reads of L / 2 to L bases (some longer than L, some empty); demux
+    reads start with one of `barcodes` (a third with a base set to A)."""
     rng = np.random.default_rng([seed, 37, n, L])
     lens = rng.integers(L // 2, L + 1, n)
     lens[::97] = 0
@@ -1540,9 +1642,9 @@ def cli_op_card_batch(op, n, L, seed):
         tiles = np.repeat(np.array(TILES, np.int32), -(-n // len(TILES)))[:n]
         return dict(tiles=tiles, qual=qual, lengths=lens.astype(np.int32))
     if op == "demux":
-        bl = len(DEMUX_BARCODES[0])
-        pick = rng.integers(0, len(DEMUX_BARCODES), n)
-        seq[:, :bl] = np.frombuffer(b"".join(DEMUX_BARCODES),
+        bl = len(barcodes[0])
+        pick = rng.integers(0, len(barcodes), n)
+        seq[:, :bl] = np.frombuffer(b"".join(barcodes).replace(b"N", b"A"),
                                     np.uint8).reshape(-1, bl)[pick]
         seq[::3, rng.integers(0, bl)] = ord("A")
     return dict(seq=seq, lengths=lens.astype(np.int32))
@@ -1643,18 +1745,27 @@ def cli_op_bound(op, arrays, **kw):
     bytes in length read once (demux: its first bl; tiles: of the rows of
     known tiles), the lengths (and tiles' row map) read once, the outputs
     written once (tiles: float32 sums and counts); CLI_OPS_PER_BYTE
-    int32 operations a byte in length, DEMUX_OPS_PER_WORD a barcode word a
-    read."""
+    int32 operations a byte in length; demux, a barcode and read,
+    DEMUX_OPS_PER_WORD a 4-byte word of a set taken as bytes, or
+    DEMUX_PLANE_OPS_PER_WORD a 32-position word and
+    DEMUX_PLANE_OPS_PER_BARCODE of one taken as planes."""
     lens = arrays["lengths"].astype(np.int64)
     n = len(lens)
     L = (arrays.get("qual") if "qual" in arrays else arrays["seq"]).shape[1]
     used = np.clip(lens, 0, L)
     if op == "demux":
-        bl = len(kw["barcodes"][0])
-        words = -(-bl // 4)
-        K = len(kw["barcodes"])
-        return bound(n * bl + 4 * n + 8 * n + 8 * K * words,
-                     DEMUX_OPS_PER_WORD * n * K * words)
+        bcs = kw["barcodes"]
+        bl, K = len(bcs[0]), len(bcs)
+        if demux_planes(bcs):
+            words = -(-bl // 32)
+            ops = (DEMUX_PLANE_OPS_PER_WORD * words
+                   + DEMUX_PLANE_OPS_PER_BARCODE)
+            set_bytes = 16 * K * words
+        else:
+            words = -(-bl // 4)
+            ops = DEMUX_OPS_PER_WORD * words
+            set_bytes = 8 * K * words
+        return bound(n * bl + 4 * n + 8 * n + set_bytes, ops * n * K)
     if op == "tiles":
         known = arrays["tiles"] >= 0
         T = max(len(np.unique(arrays["tiles"][known])), 1)
@@ -3858,8 +3969,11 @@ def phase_kernel_cli_ops(seed, files):
     its own 16,384-read batch) and a 32,768 x 1,024 batch; each call of
     CLI_OP_TIMED timed at both shapes (demux at 16,384 x 256 and 32,768 x
     1,024) beside its plain version and its bound (the tile sums also
-    beside torch.mm, tiles_library_call); at 4,096 x 256 each trim mode
-    and the tile sums run one kernel a call and no fill (device_work).
+    beside torch.mm, tiles_library_call); kmer_counts at every k on random
+    and poly-G rows and demux_assign on each of DEMUX_CARD_SETS at every
+    CLI_OP_CARD_SHAPES and view; at the CLI's shape each trim mode, the
+    tile sums, demux_assign and kmer_counts run one kernel a call and no
+    fill (device_work).
     Returns a record a kernel source (trim: its three modes together, each
     under `modes`)."""
     import torch
@@ -3873,6 +3987,24 @@ def phase_kernel_cli_ops(seed, files):
                 same_leaves(f(), plain(), "%s, %s, view %d"
                             % (label, name, view))
                 cases += 1
+    # every k, on random and on poly-G rows, and each barcode set of
+    # DEMUX_CARD_SETS at every card shape and view
+    for n, L in CLI_OP_CARD_SHAPES:
+        kb = cli_op_card_batch("kmer", n, L, seed)
+        poly = dict(kb, seq=np.full_like(kb["seq"], ord("G")))
+        batches = [("kmer", kb, dict(n_records=None, ks=KMER_KS)),
+                   ("kmer", poly, dict(n_records=None, ks=KMER_KS))]
+        batches += [("demux", cli_op_card_batch("demux", n, L, seed, bcs),
+                     dict(barcodes=bcs, max_mismatches=mms))
+                    for _, bcs, mms in DEMUX_CARD_SETS]
+        for op, arrays, kw in batches:
+            for view in CLI_OP_VIEW_OFFSETS:
+                d = cli_op_tensors(arrays, "cuda", view)
+                for name, f, plain in cli_op_calls(op, d, kw):
+                    same_leaves(f(), plain(), "%dx%d, %s, view %d"
+                                % (n, L, name, view))
+                    cases += 1
+                del d
     head = cli_file_batch(files["align"], 4096)
     head_dm = cli_file_batch(files["align"], 16384)
     shapes = {}
@@ -3882,9 +4014,9 @@ def phase_kernel_cli_ops(seed, files):
         big = cli_op_card_batch(op, 32768, 1024, seed)
         shapes[op].append(cli_op_tensors(big, "cuda"))
     for op, fn, kw in CLI_OP_TIMED:
-        if op in ("trim", "tiles"):
-            call = _timed_cli_op(op, fn, kw, shapes[op][0])[0 if op == "trim"
-                                                             else 3]
+        if op in ("trim", "tiles", "demux", "kmer"):
+            call = _timed_cli_op(op, fn, kw, shapes[op][0])[3 if op == "tiles"
+                                                             else 0]
             kernels, fills = device_work(call)
             if len(kernels) != 1 or fills:
                 raise AssertionError("%s: %s kernels and %s fills a call, "

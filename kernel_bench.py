@@ -3,7 +3,8 @@ source tree or several in turn.
 
     python3 kernel_bench.py [--tree DIR ...] [--seed N] [--ragged-path]
                             [--sweep]
-                            [--only device_parse|merge|merge_kernel|cli_ops]
+                            [--only device_parse|merge|merge_kernel|cli_ops|
+                                    kmer_k8]
 
 Each DIR (default: this script's directory) holds a `blazeseq_tpu_torch`
 package; its kernels are built from its own sources and timed in a fresh
@@ -75,10 +76,18 @@ compare two commits on one card). Shapes:
   its one PyTorch call, torch.mm of the one-hot tile matrix, beside it),
   checked equal to its plain version where the tree has one; the host ms
   of each step of a tiles call as the call marks it
-  (`tiles_call_split_ms`); the launches of one call of each (as in
-  `merge`); the walls of `trim` in three modes,
+  (`tiles_call_split_ms`); kmer_counts at k = 1, 4 and 8 on random and
+  poly-G rows at 4,096 x 256, 65,536 x 256 and 32,768 x 1,024, and
+  demux_assign on the 4 x 8, 8 x 48, 4,096 x 16 and 384 x 32 barcode
+  sets at 16,384 x 256 ("refused" where the tree's kernel raises for the
+  set), each beside its bound (`sets`); the launches of one call of each
+  (as in `merge`); the walls of `trim` in three modes,
   `demux` and `tiles` on the 1M reads, twice each, with the sha256 of each
   command's stdout and output files;
+* kmer_counts' costs (`--only kmer_k8`, this section alone): csrc/kmer.cu
+  at k = 4 and 8, 4,096 x 256 and 32,768 x 1,024, built alone with
+  switches that drop the other blocks' pieces, the rounds' cluster
+  barriers or the flush, and with bin owners fixed at 1 to 64 (`_kmer_k8`);
 * the CUDA kernel launches of one `run_file(align_to, adapters,
   duplicates, quartiles)` batch, from torch.profiler: the launches of
   runs over 1 and over 3 padded batches of chip_smoke's planted corpus,
@@ -203,6 +212,9 @@ def _one_tree(tree, seed, ragged_path=False, sweep=False, only=None):
         return out
     if only == "cli_ops":
         out["cli_ops"] = _cli_ops(cs, seed)
+        return out
+    if only == "kmer_k8":
+        out["kmer_k8"] = _kmer_k8(cs, seed)
         return out
     rng = np.random.default_rng([seed, 3])
     acgt = np.frombuffer(b"ACGT", np.uint8)
@@ -868,6 +880,135 @@ def _tiles_split(cs, head, repeats=20):
     return {name: statistics.median(v[1:]) for name, v in times.items()}
 
 
+# kmer_counts' ks and shapes (the CLI's, the analysis path's and reads up
+# to 1 kb), on random and on poly-G rows, and demux_assign's sets at its
+# 16,384 x 256 batch: chip_smoke.DEMUX_CARD_SETS and 384 x 32
+KMER_BENCH_KS = (1, 4, 8)
+KMER_BENCH_SHAPES = ((4096, 256), (65536, 256), (32768, 1024))
+DEMUX_BENCH_SHAPE = (16384, 256)
+
+
+def _cli_op_sets(cs, seed):
+    """Card-alone ms of kmer_counts at KMER_BENCH_KS on KMER_BENCH_SHAPES
+    (random rows, chip_smoke.cli_op_card_batch, and the same rows all G)
+    and of demux_assign (max_mismatches 1) on each barcode set at
+    DEMUX_BENCH_SHAPE, each beside its bound and checked equal to its
+    plain version; "refused" where the tree's kernel raises ValueError for
+    the set."""
+    import numpy as np
+
+    from blazeseq_tpu_torch.ops import demux, kmer
+
+    out = {}
+    for n, L in KMER_BENCH_SHAPES:
+        arrays = cs.cli_op_card_batch("kmer", n, L, seed)
+        poly = dict(arrays, seq=np.full_like(arrays["seq"], ord("G")))
+        for rows, host in (("random", arrays), ("poly-G", poly)):
+            d = cs.cli_op_tensors(host, "cuda")
+            for k in KMER_BENCH_KS:
+                def call(k=k):
+                    return kmer.kmer_counts(d["seq"], d["lengths"], k=k)
+                _same((call(),), (kmer.kmer_counts_torch(
+                    d["seq"], d["lengths"], k=k),), "kmer k=%d" % k)
+                out["kmer_k%d_%dx%d_%s" % (k, n, L, rows)] = dict(
+                    device_ms=device_ms(call),
+                    **cs.cli_op_bound("kmer", host, k=k))
+            del d
+    n, L = DEMUX_BENCH_SHAPE
+    sets = [(name, bcs) for name, bcs, _ in cs.DEMUX_CARD_SETS]
+    sets.append(("384 x 32", tuple(cs.barcode_set(384, 32))))
+    for name, bcs in sets:
+        host = cs.cli_op_card_batch("demux", n, L, seed, bcs)
+        d = cs.cli_op_tensors(host, "cuda")
+
+        def call(bcs=bcs):
+            return demux.demux_assign(d["seq"], d["lengths"], bcs, 1)
+        rec = dict(cs.cli_op_bound("demux", host, barcodes=bcs))
+        try:
+            got = call()
+        except ValueError as e:
+            rec.update(device_ms="refused", error=str(e))
+        else:
+            _same(got, demux.demux_assign_torch(d["seq"], d["lengths"], bcs,
+                                                1), "demux %s" % name)
+            rec["device_ms"] = device_ms(call)
+        out["demux_%s_%dx%d" % (name.replace(",", "").replace(" ", ""), n,
+                                L)] = rec
+        del d
+    return out
+
+
+# --only kmer_k8: csrc/kmer.cu built alone with its measurement switches
+# (name, BS_KMER_SKIP, BS_KMER_OWNERS); the owner counts of the sweep
+KMER_SWITCHES = (("library", 0, 0), ("skip_other_pieces", 1, 0),
+                 ("skip_round_barriers", 2, 0), ("skip_flush", 4, 0),
+                 ("skip_all", 7, 0))
+KMER_OWNERS = (1, 2, 4, 8, 16, 32, 64)
+KMER_K8_SHAPES = ((4096, 256), (32768, 1024))
+
+
+def _kmer_k8(cs, seed):
+    """Card-alone ms of csrc/kmer.cu at k = 4 and 8 on KMER_K8_SHAPES
+    (random rows, chip_smoke.cli_op_card_batch), built alone once a
+    KMER_SWITCHES entry (the switches that drop work leave the counts
+    wrong) and once an owner count of KMER_OWNERS (bin owners: blocks at k
+    = 4, clusters of 2 blocks at k = 8), every build but the dropping ones
+    checked equal to the plain version first. Each build is one nvcc, all
+    started together."""
+    import ctypes
+
+    import torch
+
+    from blazeseq_tpu_torch import _kernels
+    from blazeseq_tpu_torch.ops import kmer
+
+    builds = [(name, skip, 0) for name, skip, _ in KMER_SWITCHES]
+    builds += [("owners_%d" % o, 0, o) for o in KMER_OWNERS]
+    src = os.path.join(_kernels.CSRC, "kmer.cu")
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="kmer_k8_", dir=os.path.join(HERE,
+                                                                "build"))
+    procs = {}
+    for name, skip, owners in builds:
+        so = os.path.join(tmp, name + ".so")
+        procs[name] = (so, subprocess.Popen(
+            [_kernels.find_nvcc(), *_kernels.NVCC_FLAGS, "-shared",
+             "-DBS_KMER_SKIP=%d" % skip, "-DBS_KMER_OWNERS=%d" % owners,
+             src, "-o", so], stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        if proc.wait() != 0:
+            raise RuntimeError("nvcc %s: %s" % (name, proc.stderr.read()))
+        lib = ctypes.CDLL(so)
+        lib.bs_kmer_counts.argtypes = _kernels._SIGNATURES["bs_kmer_counts"]
+        lib.bs_kmer_counts.restype = ctypes.c_int
+        libs[name] = lib
+    dev = torch.device("cuda", torch.cuda.current_device())
+    state = torch.zeros(2, dtype=torch.int64, device=dev)
+    sms = _kernels.sm_count(0)
+    out = {}
+    for n, L in KMER_K8_SHAPES:
+        d = cs.cli_op_tensors(cs.cli_op_card_batch("kmer", n, L, seed),
+                              "cuda")
+        for k in (4, 8):
+            want = kmer.kmer_counts_torch(d["seq"], d["lengths"], k=k)
+            bins = torch.empty(4 ** k, dtype=torch.int32, device=dev)
+            for (name, skip, _), lib in zip(builds, libs.values()):
+                def call(lib=lib):
+                    _kernels.check(lib.bs_kmer_counts(
+                        d["seq"].data_ptr(), d["lengths"].data_ptr(), None,
+                        0, n, bins.data_ptr(), state.data_ptr(), n, L, k,
+                        sms, _kernels.stream_ptr(dev)), name)
+                    return bins
+                call()
+                if not skip:
+                    _same((call(),), (want,), "kmer %s k=%d" % (name, k))
+                out.setdefault(name, {})["k%d_%dx%d" % (k, n, L)] = \
+                    device_ms(call)
+        del d
+    return out
+
+
 # the CLI commands whose walls --only cli_ops takes (chip_smoke.CLI_COMMANDS)
 CLI_OP_COMMANDS = ("trim window", "trim bwa", "trim ends", "demux", "tiles")
 
@@ -934,6 +1075,7 @@ def _cli_ops(cs, seed):
                     del lib, check
                 out["kernels"]["%s_%dx%d" % (fn, n, L)] = rec
                 del call, plain, whole
+        out["sets"] = _cli_op_sets(cs, seed)
         out["tiles_call_split_ms"] = _tiles_split(cs, head)
         out["cli_op_launches_4096x256"] = _cli_op_launches(cs, reads)
         walls = {}
@@ -1006,7 +1148,8 @@ def main(argv=None):
                     help="also time qc_stats over rows a block x cluster "
                     "size")
     ap.add_argument("--only", choices=("device_parse", "merge",
-                                       "merge_kernel", "cli_ops"),
+                                       "merge_kernel", "cli_ops",
+                                       "kmer_k8"),
                     help="time only this section")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
