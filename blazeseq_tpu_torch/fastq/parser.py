@@ -29,7 +29,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-from .. import native
+from .. import native, tracing
 from ..constants import (
     DEFAULT_BATCH_SIZE,
     DEFAULT_CAPACITY,
@@ -592,90 +592,96 @@ class FastqParser:
 
         `_out=(seq, qual, lengths)` fills caller-provided buffers instead of
         allocating (used by padded_batches(reuse_buffers=True))."""
-        self._sync_chain()
-        from .batch import PaddedFastqBatch
+        with tracing.span("bs.parse.batch"):
+            self._sync_chain()
+            from .batch import PaddedFastqBatch
 
-        limit = max_records or self._batch_size
-        rows = max(limit, pad_records_to or 0)
-        if _out is not None:
-            seq, qual, lengths = _out
-        else:
-            seq = native.aligned_empty((rows, max_len))
-            qual = native.aligned_empty((rows, max_len))
-            lengths = np.zeros(rows, dtype=np.int32)
-        got = 0
-        s = self._stream
-        cfg = self.config
-        cap = (cfg.buffer_max_capacity if cfg.buffer_growth_enabled
-               else cfg.buffer_capacity)
-        while got < limit:
-            # drain any queued offsets first (mixed view/batch usage)
-            if self._q_pos < len(self._q):
-                take = min(limit - got, self._queue_len())
-                native.gather_padded(
-                    s.window(), self._q[self._q_pos : self._q_pos + take],
-                    max_len,
-                    out=(seq[got : got + take], qual[got : got + take],
-                         lengths[got : got + take]))
-                self._q_pos += take
-                self._served += take
-                got += take
-                continue
-            if self._pending_exc_info is not None:
-                self._raise_validation_error()
-            if s.available() == 0 and s.fill() == 0 and s.available() == 0:
-                break  # EOF
-            r = native.scan_gather_padded(
-                s.window(), s._head, limit - got, max_len,
-                cfg.check_ascii, cfg.check_quality,
-                self.quality_schema.LOWER, self.quality_schema.UPPER,
-                cap, seq[got:], qual[got:], lengths[got:])
-            if r is None:  # no native library: queue-based fallback
-                try:
+            limit = max_records or self._batch_size
+            rows = max(limit, pad_records_to or 0)
+            if _out is not None:
+                seq, qual, lengths = _out
+            else:
+                with tracing.span("bs.parse.alloc"):
+                    seq = native.aligned_empty((rows, max_len))
+                    qual = native.aligned_empty((rows, max_len))
+                    lengths = np.zeros(rows, dtype=np.int32)
+            got = 0
+            s = self._stream
+            cfg = self.config
+            cap = (cfg.buffer_max_capacity if cfg.buffer_growth_enabled
+                   else cfg.buffer_capacity)
+            while got < limit:
+                # drain any queued offsets first (mixed view/batch usage)
+                if self._q_pos < len(self._q):
+                    take = min(limit - got, self._queue_len())
+                    native.gather_padded(
+                        s.window(), self._q[self._q_pos : self._q_pos + take],
+                        max_len,
+                        out=(seq[got : got + take], qual[got : got + take],
+                             lengths[got : got + take]))
+                    self._q_pos += take
+                    self._served += take
+                    got += take
+                    continue
+                if self._pending_exc_info is not None:
+                    self._raise_validation_error()
+                if s.available() == 0 and s.fill() == 0 and s.available() == 0:
+                    break  # EOF
+                r = native.scan_gather_padded(
+                    s.window(), s._head, limit - got, max_len,
+                    cfg.check_ascii, cfg.check_quality,
+                    self.quality_schema.LOWER, self.quality_schema.UPPER,
+                    cap, seq[got:], qual[got:], lengths[got:])
+                if r is None:  # no native library: queue-based fallback
+                    try:
+                        self._scan_more()
+                    except FastxEOFError:
+                        break
+                    continue
+                count, consumed, err, phase = r
+                if count:
+                    s.consume(consumed - s._head)
+                    self._served += count
+                    got += count
+                    continue
+                if err:
+                    # reproduce the exact error through the offset path (always
+                    # raises: the bad record sits at the window head)
                     self._scan_more()
-                except FastxEOFError:
+                    raise AssertionError("unreachable")
+                # no complete record in window
+                if s.is_eof():
+                    if s.available() == 0:
+                        break
+                    try:
+                        self._handle_eof_tail(phase)
+                    except FastxEOFError:
+                        break
+                    continue  # synthesized tail record now queued
+                if s.available() >= cfg.buffer_capacity:
+                    if not cfg.buffer_growth_enabled:
+                        raise ParseError(
+                            "FASTQ record exceeds buffer capacity (%d bytes)."
+                            " Enable buffer growth or increase"
+                            " buffer_capacity."
+                            % cfg.buffer_capacity,
+                            code=FastxErrorCode.BUFFER_EXCEEDED)
+                    if s.available() >= cfg.buffer_max_capacity:
+                        raise ParseError(
+                            "FASTQ record exceeds maximum buffer capacity (%d"
+                            " bytes). Enable buffer growth or increase"
+                            " max_capacity." % cfg.buffer_max_capacity,
+                            code=FastxErrorCode.BUFFER_AT_MAX)
+                if s.fill() == 0 and s.available() == 0:
                     break
-                continue
-            count, consumed, err, phase = r
-            if count:
-                s.consume(consumed - s._head)
-                self._served += count
-                got += count
-                continue
-            if err:
-                # reproduce the exact error through the offset path (always
-                # raises: the bad record sits at the window head)
-                self._scan_more()
-                raise AssertionError("unreachable")
-            # no complete record in window
-            if s.is_eof():
-                if s.available() == 0:
-                    break
-                try:
-                    self._handle_eof_tail(phase)
-                except FastxEOFError:
-                    break
-                continue  # synthesized tail record now queued
-            if s.available() >= cfg.buffer_capacity:
-                if not cfg.buffer_growth_enabled:
-                    raise ParseError(
-                        "FASTQ record exceeds buffer capacity (%d bytes)."
-                        " Enable buffer growth or increase buffer_capacity."
-                        % cfg.buffer_capacity,
-                        code=FastxErrorCode.BUFFER_EXCEEDED)
-                if s.available() >= cfg.buffer_max_capacity:
-                    raise ParseError(
-                        "FASTQ record exceeds maximum buffer capacity (%d"
-                        " bytes). Enable buffer growth or increase"
-                        " max_capacity." % cfg.buffer_max_capacity,
-                        code=FastxErrorCode.BUFFER_AT_MAX)
-            if s.fill() == 0 and s.available() == 0:
-                break
-        if got < rows:
-            lengths[got:] = 0
-        return PaddedFastqBatch(seq=seq, qual=qual, lengths=lengths,
-                                n_records=got,
-                                quality_offset=self.quality_schema.OFFSET)
+            if got < rows:
+                lengths[got:] = 0
+            if got:
+                tracing.count("parse.batches")
+                tracing.count("parse.reads", got)
+            return PaddedFastqBatch(seq=seq, qual=qual, lengths=lengths,
+                                    n_records=got,
+                                    quality_offset=self.quality_schema.OFFSET)
 
     def bucketed_padded_batches(self, buckets=(128, 256, 512, 1024),
                                 max_records: Optional[int] = None):

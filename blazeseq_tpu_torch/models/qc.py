@@ -66,7 +66,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, tracing
 from ..constants import DEFAULT_BATCH_SIZE
 from ..fastq.parser import FastqParser, ParserConfig
 from ..fastq.quality import QualitySchema, parse_schema
@@ -304,8 +304,10 @@ class QCModel:
     def run_file(self, path, parallelism: int = 4) -> QCReport:
         """QC (and the optional panels) of one FASTQ file, plain or gzip,
         through the host parser and the padded-batch device step."""
-        self._resolve_auto_schema(path)
-        return self.run_reader(open_reader(path, parallelism=parallelism))
+        with tracing.span("bs.run_file"):
+            self._resolve_auto_schema(path)
+            return self.run_reader(open_reader(path,
+                                               parallelism=parallelism))
 
     def run_reader(self, reader) -> QCReport:
         return self.run_parser(self._parser(reader))
@@ -359,17 +361,19 @@ class QCModel:
                 # step this block's
                 n_step = n if sp else _local_record_count(
                     seq.shape[0], n, axis_index(mesh, DP_AXIS))
-            if sp:
-                res = step(seq, qual, lengths, n_step, self.schema, ref)
-                dev_total = (res.stats if dev_total is None
-                             else dev_total.merge(res.stats))
-            else:
-                res = step(seq, qual, lengths, n_step, self.schema, ref,
-                           out=dev_total)
-                dev_total = res.stats
+            with tracing.span("bs.qc.step"):
+                if sp:
+                    res = step(seq, qual, lengths, n_step, self.schema, ref)
+                    dev_total = (res.stats if dev_total is None
+                                 else dev_total.merge(res.stats))
+                else:
+                    res = step(seq, qual, lengths, n_step, self.schema, ref,
+                               out=dev_total)
+                    dev_total = res.stats
             pending += 1
             if pending >= _FLUSH_EVERY:
-                acc.add(dev_total)
+                with tracing.span("bs.qc.accumulate"):
+                    acc.add(dev_total)
                 dev_total = None
                 pending = 0
             if scores is not None:
@@ -378,8 +382,10 @@ class QCModel:
             if self.adapters:
                 rows, lens, n_rows = self._rank_rows(pb, seq, lengths,
                                                      n_step)
-                ad_totals = _adapter_contents(rows, lens, n_rows,
-                                              self.adapters, out=ad_totals)
+                with tracing.span("bs.qc.adapters"):
+                    ad_totals = _adapter_contents(rows, lens, n_rows,
+                                                  self.adapters,
+                                                  out=ad_totals)
             if (self.track_duplicates and n
                     and dup_seen < self.dup_track_limit):
                 take = min(n, self.dup_track_limit - dup_seen)
@@ -392,13 +398,16 @@ class QCModel:
                 dup_hashes = self._dup_room(dup_hashes, dup_seen + take,
                                             hseq.device)
                 # only the sampled rows, straight into the sample
-                _read_hashes_into(hseq, hlens, n, dup_hashes, dup_seen, take)
+                with tracing.span("bs.qc.hashes"):
+                    _read_hashes_into(hseq, hlens, n, dup_hashes, dup_seen,
+                                      take)
                 # 50 bp representative prefixes for the overrepresented list
                 dup_prefixes.append(
                     np.array(pb.seq[:take, : min(50, pb.seq.shape[1])]))
                 dup_seen += take
         if dev_total is not None:
-            acc.add(dev_total)
+            with tracing.span("bs.qc.accumulate"):
+                acc.add(dev_total)
         if mesh is not None and not sp and acc.total is not None:
             # each rank summed its own blocks: one exact int64 merge
             merged = QCAccumulator()
@@ -439,9 +448,10 @@ class QCModel:
 
     def _upload(self, pb):
         """A padded batch's seq, qual and int32 lengths on the device."""
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                     for a in (pb.seq, pb.qual,
-                               np.asarray(pb.lengths, np.int32)))
+        with tracing.span("bs.qc.upload"):
+            return tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                for a in (pb.seq, pb.qual, np.asarray(pb.lengths, np.int32)))
 
     def run_file_device(self, path, chunk_mb: int = 256,
                         parallelism: int = 4) -> QCReport:
@@ -454,14 +464,22 @@ class QCModel:
         whatever the set, so a peek would buy them nothing and cost a second
         pass over the file whenever it missed a value (a stream cannot be
         read twice without inflating it again)."""
-        self._hist_his = set()
-        rep = self._run_file_device_once(path, chunk_mb, parallelism,
-                                         adaptive=True)
-        if any(self._hist_overflows(rep, h) for h in self._hist_his):
+        with tracing.span("bs.run_file_device"):
             self._hist_his = set()
             rep = self._run_file_device_once(path, chunk_mb, parallelism,
-                                             adaptive=False)
-        return rep
+                                             adaptive=True)
+            if any(self._hist_overflows(rep, h) for h in self._hist_his):
+                # the whole first pass is thrown away: what it kept of
+                # the bytes it fed
+                tracing.count("qc.reruns")
+                tracing.count(
+                    "qc.discarded_bytes",
+                    tracing.request_count("qc.dispatched_bytes")
+                    - tracing.request_count("qc.discarded_bytes"))
+                self._hist_his = set()
+                rep = self._run_file_device_once(path, chunk_mb, parallelism,
+                                                 adaptive=False)
+            return rep
 
     def _run_file_device_once(self, path, chunk_mb: int = 256,
                               parallelism: int = 4,
@@ -486,7 +504,8 @@ class QCModel:
         if data is None or len(data) == 0:
             self._host_consume(self._parser(reader), acc)
             return self._report_from_acc(acc)
-        lay = detect_uniform_layout(data)
+        with tracing.span("bs.qc.route"):
+            lay = detect_uniform_layout(data)
         if lay is None or lay.rs > chunk_mb << 19:
             # semi-uniform tier first; it hands what it declines to the
             # general ragged tier
@@ -500,7 +519,8 @@ class QCModel:
         csize = max((chunk_mb << 20) // lay.rs, 1) * lay.rs
         # never allocate a chunk larger than the (rs-rounded) input
         csize = min(csize, -(-total // lay.rs) * lay.rs)
-        hv = self._adaptive_hist_vals(data) if adaptive else ()
+        with tracing.span("bs.qc.route"):
+            hv = self._adaptive_hist_vals(data) if adaptive else ()
         uqc = self._device_uqc(lay, self.max_read_len, hist_vals=hv)
 
         # Full-size chunks are read-only slices of the mapping; the device
@@ -513,28 +533,36 @@ class QCModel:
 
         def consume(ready):
             nonlocal fail_pos
-            for meta, (ok, st) in ready:
+            for (at, nv), (ok, st) in ready:
                 if fail_pos is not None:
+                    tracing.count("qc.discarded_bytes", nv)
                     continue
-                if bool(ok):
-                    acc.add(st)
+                with tracing.span("bs.qc.accumulate"):
+                    ok = bool(ok)
+                    if ok:
+                        acc.add(st)
+                if ok:
                     self.tier_chunks["uniform"] += 1
                 else:
-                    fail_pos = meta  # proof failed: next tier from here
+                    fail_pos = at  # proof failed: next tier from here
+                    tracing.count("qc.failed_proofs")
+                    tracing.count("qc.discarded_bytes", nv)
         pos = 0
         while pos < total and fail_pos is None:
             b = min(pos + csize, total)
             n_valid = (b - pos) // lay.rs * lay.rs
             if n_valid == 0:
                 break  # trailing partial record: host tail
+            tracing.count("qc.dispatched_bytes", n_valid)
             if b - pos == csize:
-                consume(ing.feed(data[pos:b], n_valid, meta=pos,
+                consume(ing.feed(data[pos:b], n_valid, meta=(pos, n_valid),
                                  owned=False))
             else:
                 buf = ing.acquire()
-                buf[: b - pos] = data[pos:b]
-                buf[b - pos:] = 0
-                consume(ing.feed(buf, n_valid, meta=pos))
+                with tracing.span("bs.feed.fill"):
+                    buf[: b - pos] = data[pos:b]
+                    buf[b - pos:] = 0
+                consume(ing.feed(buf, n_valid, meta=(pos, n_valid)))
             pos += n_valid
         consume(ing.drain())
         # fail_pos and pos are proven record boundaries: every accepted
@@ -600,7 +628,8 @@ class QCModel:
         semi-uniform, a record larger than half a chunk and a normalized
         layout that kernel B refuses on the card leave the rest to the
         ragged tier too."""
-        peek = self._peek_semi_uniform(data)
+        with tracing.span("bs.qc.route"):
+            peek = self._peek_semi_uniform(data)
         total = len(data)
         pos = 0
         while peek is not None and pos < total:
@@ -621,23 +650,31 @@ class QCModel:
 
             def consume(ready):
                 nonlocal fail_orig
-                for meta, (ok, st) in ready:
+                for (at, nv), (ok, st) in ready:
                     if fail_orig is not None:
+                        tracing.count("qc.discarded_bytes", nv)
                         continue
-                    if bool(ok):
-                        acc.add(st)
+                    with tracing.span("bs.qc.accumulate"):
+                        ok = bool(ok)
+                        if ok:
+                            acc.add(st)
+                    if ok:
                         self.tier_chunks["semi"] += 1
                     else:
-                        fail_orig = meta  # the chunk's ORIGINAL start
+                        fail_orig = at  # the chunk's ORIGINAL start
+                        tracing.count("qc.failed_proofs")
+                        tracing.count("qc.discarded_bytes", nv)
             stalled = False
             while pos < total and fail_orig is None:
                 buf = ing.acquire()
-                nrec, consumed = native.normalize_semi_uniform(
-                    data, pos, buf, idw, L)
+                with tracing.span("bs.feed.fill"):
+                    nrec, consumed = native.normalize_semi_uniform(
+                        data, pos, buf, idw, L)
                 if nrec == 0:
                     stalled = True
                     break
-                consume(ing.feed(buf, nrec * rs, meta=pos))
+                tracing.count("qc.dispatched_bytes", nrec * rs)
+                consume(ing.feed(buf, nrec * rs, meta=(pos, nrec * rs)))
                 pos = consumed
             consume(ing.drain())
             if fail_orig is not None:
@@ -645,7 +682,8 @@ class QCModel:
                 break  # rejected on the device: the rest leaves this tier
             if not stalled or pos >= total:
                 break
-            peek = self._peek_semi_uniform(data[pos:])
+            with tracing.span("bs.qc.route"):
+                peek = self._peek_semi_uniform(data[pos:])
             if peek is None:
                 break
             L2, idw2 = peek
@@ -687,14 +725,19 @@ class QCModel:
             nonlocal fail_pos
             for (pos_m, nv_m, last), r in ready:
                 if fail_pos is not None:
+                    tracing.count("qc.discarded_bytes", nv_m)
                     continue
-                tail = int(r.tail_start)
-                good = bool(r.ok) and not bool(r.fallback) and tail > 0 \
-                    and (tail == nv_m or last)
+                with tracing.span("bs.qc.accumulate"):
+                    tail = int(r.tail_start)
+                    good = bool(r.ok) and not bool(r.fallback) \
+                        and tail > 0 and (tail == nv_m or last)
+                    if good:
+                        acc.add(r.stats)
                 if not good:
                     fail_pos = pos_m
+                    tracing.count("qc.failed_proofs")
+                    tracing.count("qc.discarded_bytes", nv_m)
                     continue
-                acc.add(r.stats)
                 self.tier_chunks["ragged"] += 1
                 if last and tail < nv_m:
                     fail_pos = pos_m + tail  # the file's partial tail
@@ -703,27 +746,30 @@ class QCModel:
         while pos < total and fail_pos is None:
             cut = min(pos + csize, total)
             if cut < total:
-                # the resync scans FORWARD: probe from a little before the
-                # capacity limit and take the first boundary it proves,
-                # backing off further for records longer than the window
-                # (a short probe keeps the pure-Python scan cheaper than the
-                # chunk copy). A cut past pos + csize cannot fit the
-                # staging buffer; no provable boundary leaves the rest to
-                # the host route.
-                back = 4096
-                while True:
-                    cut = find_record_boundary_bytes(
-                        data, max(pos + 1, pos + csize - back),
-                        probe=back + 8192)
-                    if cut <= pos + csize or back >= csize:
-                        break
-                    back *= 4
+                with tracing.span("bs.feed.fill"):
+                    # the resync scans FORWARD: probe from a little before
+                    # the capacity limit and take the first boundary it
+                    # proves, backing off further for records longer than
+                    # the window (a short probe keeps the pure-Python scan
+                    # cheaper than the chunk copy). A cut past pos + csize
+                    # cannot fit the staging buffer; no provable boundary
+                    # leaves the rest to the host route.
+                    back = 4096
+                    while True:
+                        cut = find_record_boundary_bytes(
+                            data, max(pos + 1, pos + csize - back),
+                            probe=back + 8192)
+                        if cut <= pos + csize or back >= csize:
+                            break
+                        back *= 4
                 if cut <= pos or cut > pos + csize:
                     break
             nv = cut - pos
             buf = ing.acquire()
-            buf[:nv] = data[pos:cut]
-            buf[nv:] = 0
+            with tracing.span("bs.feed.fill"):
+                buf[:nv] = data[pos:cut]
+                buf[nv:] = 0
+            tracing.count("qc.dispatched_bytes", nv)
             consume(ing.feed(buf, nv, meta=(pos, nv, cut >= total)))
             pos = cut
         consume(ing.drain())
@@ -754,7 +800,8 @@ class QCModel:
                     break
                 head += scratch[:n]
             head = bytes(head)
-            lay = detect_uniform_layout(head)
+            with tracing.span("bs.qc.route"):
+                lay = detect_uniform_layout(head)
             if (lay is None or lay.rs > chunk_mb << 19
                     or not self._kernel_takes(lay.rs, lay.seq_len)):
                 self._run_ragged_stream(head, reader, chunk_mb, acc)
@@ -786,16 +833,22 @@ class QCModel:
 
         def consume(ready):
             nonlocal rest
-            for _meta, (ok, st) in ready:
+            for nv, (ok, st) in ready:
                 b, f, c = pending.popleft()
                 if rest is not None:
+                    tracing.count("qc.discarded_bytes", nv)
                     continue
-                if bool(ok):
-                    acc.add(st)
+                with tracing.span("bs.qc.accumulate"):
+                    ok = bool(ok)
+                    if ok:
+                        acc.add(st)
+                if ok:
                     self.tier_chunks["uniform"] += 1
                 else:
                     rest = [bytes(b[:f])] + [bytes(pb[pc:pf])
                                              for pb, pf, pc in pending]
+                    tracing.count("qc.failed_proofs")
+                    tracing.count("qc.discarded_bytes", nv)
         buf = ing.acquire()
         fill, carry, eof = len(head), 0, head_eof  # the head is fresh bytes
         buf[:fill] = np.frombuffer(head, np.uint8)
@@ -810,7 +863,8 @@ class QCModel:
                 break  # a partial record ends the stream
             buf[fill:] = 0
             pending.append((buf, fill, carry))
-            consume(ing.feed(buf, n_valid))
+            tracing.count("qc.dispatched_bytes", n_valid)
+            consume(ing.feed(buf, n_valid, meta=n_valid))
             rem = fill - n_valid
             if rest is not None or (eof and rem == 0):
                 buf = None  # dispatched: nothing of it is left over
@@ -869,11 +923,18 @@ class QCModel:
                 ing = OverlappedIngest(self._device_rqc, csize, depth=0,
                                        device=self.device)
             buf[fill:csize] = 0
+            tracing.count("qc.dispatched_bytes", fill)
             ((_, r),) = ing.feed(buf[:csize], fill, owned=False)
-            tail = int(r.tail_start)
-            if not bool(r.ok) or bool(r.fallback) or tail == 0:
-                break  # this chunk and the rest go to the host route
-            acc.add(r.stats)
+            with tracing.span("bs.qc.accumulate"):
+                tail = int(r.tail_start)
+                good = bool(r.ok) and not bool(r.fallback) and tail > 0
+                if good:
+                    acc.add(r.stats)
+            if not good:
+                # this chunk and the rest go to the host route
+                tracing.count("qc.failed_proofs")
+                tracing.count("qc.discarded_bytes", fill)
+                break
             self.tier_chunks["ragged"] += 1
             fill -= tail
             buf[:fill] = buf[tail:tail + fill]
@@ -956,39 +1017,44 @@ class QCModel:
         for pb in parser.padded_batches(self.batch_size,
                                         max_len=self.max_read_len,
                                         pad_records_to=self.batch_size):
-            total = self._step(*self._upload(pb), int(pb.n_records),
-                               self.schema, out=total).stats
+            seq, qual, lengths = self._upload(pb)
+            with tracing.span("bs.qc.step"):
+                total = self._step(seq, qual, lengths, int(pb.n_records),
+                                   self.schema, out=total).stats
             pending += 1
             if pending >= _FLUSH_EVERY:
-                acc.add(total)
+                with tracing.span("bs.qc.accumulate"):
+                    acc.add(total)
                 total, pending = None, 0
             self.tier_chunks["host"] += 1
         if total is not None:
-            acc.add(total)
+            with tracing.span("bs.qc.accumulate"):
+                acc.add(total)
 
     def _report_from_acc(self, acc, **extra) -> QCReport:
         """The report from the host totals: the core panels, the quartile
         panel when tracked, and the `extra` fields."""
-        if acc.total is None:
-            acc.add(zero_stats(self.max_read_len, self.track_quartiles))
-        t = acc.total
-        return QCReport(
-            reads=int(t.reads),
-            bases=int(t.bases),
-            error_reads=int(t.error_reads),
-            gc_fraction=acc.gc_fraction(),
-            mean_quality=acc.mean_quality(),
-            base_counts=np.asarray(t.base_counts),
-            per_position_mean_quality=acc.per_position_mean_quality(),
-            qual_hist=np.asarray(t.qual_hist),
-            length_hist=np.asarray(t.length_hist),
-            gc_hist=np.asarray(t.gc_hist),
-            mean_qual_hist=np.asarray(t.mean_qual_hist),
-            per_pos_base_counts=np.asarray(t.per_pos_base_counts),
-            per_pos_count=np.asarray(t.per_pos_count),
-            **self._quartile_report(acc),
-            **extra,
-        )
+        with tracing.span("bs.qc.report"):
+            if acc.total is None:
+                acc.add(zero_stats(self.max_read_len, self.track_quartiles))
+            t = acc.total
+            return QCReport(
+                reads=int(t.reads),
+                bases=int(t.bases),
+                error_reads=int(t.error_reads),
+                gc_fraction=acc.gc_fraction(),
+                mean_quality=acc.mean_quality(),
+                base_counts=np.asarray(t.base_counts),
+                per_position_mean_quality=acc.per_position_mean_quality(),
+                qual_hist=np.asarray(t.qual_hist),
+                length_hist=np.asarray(t.length_hist),
+                gc_hist=np.asarray(t.gc_hist),
+                mean_qual_hist=np.asarray(t.mean_qual_hist),
+                per_pos_base_counts=np.asarray(t.per_pos_base_counts),
+                per_pos_count=np.asarray(t.per_pos_count),
+                **self._quartile_report(acc),
+                **extra,
+            )
 
     @staticmethod
     def _quartile_report(acc) -> dict:
@@ -1020,11 +1086,13 @@ class QCModel:
         """The duplication panel's fields from the sample's first
         `dup_seen` rows (int64 on the device holding uint32 values; None
         for none) and the 50 bp prefixes, in one device-to-host copy."""
-        h = (dup_hashes[:dup_seen].cpu().numpy().astype(np.uint32)
-             if dup_hashes is not None
-             else np.empty((0, 2), np.uint32))
-        pfx = (np.concatenate(dup_prefixes)
-               if dup_prefixes else np.empty((0, 0), np.uint8))
-        levels, frac_unique = duplication_levels(h)
-        return dict(duplication_levels=levels, frac_unique_reads=frac_unique,
-                    overrepresented=overrepresented_sequences(h, pfx))
+        with tracing.span("bs.qc.report"):
+            h = (dup_hashes[:dup_seen].cpu().numpy().astype(np.uint32)
+                 if dup_hashes is not None
+                 else np.empty((0, 2), np.uint32))
+            pfx = (np.concatenate(dup_prefixes)
+                   if dup_prefixes else np.empty((0, 0), np.uint8))
+            levels, frac_unique = duplication_levels(h)
+            return dict(duplication_levels=levels,
+                        frac_unique_reads=frac_unique,
+                        overrepresented=overrepresented_sequences(h, pfx))

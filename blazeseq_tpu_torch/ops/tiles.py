@@ -19,13 +19,12 @@ PerTileAccumulator adds batches in int64 on the host; `mean()` /
 
 from __future__ import annotations
 
-import time
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from .. import _kernels
+from .. import _kernels, tracing
 from .common import _kept, check_cuda_batch
 from .stats import MAX_PHRED
 
@@ -124,46 +123,38 @@ def _tile_sums_launch(qual, lengths, dst, out, offset) -> None:
     per_tile_qual_sums.launches += 1
 
 
-# set to a list, the CUDA call appends (step, time.perf_counter()) at the
-# start and at the end of each of its steps, for a caller that times them
-step_marks = None
-
-
-def _mark(step):
-    if step_marks is not None:
-        step_marks.append((step, time.perf_counter()))
-
-
 def _per_tile_qual_sums_cuda(tiles, qual, lengths, offset, unique_tiles,
                              n_records):
     """The row map made on the host and sent up in one copy, one launch
     into float32 [2, T, L], the sums back in one copy. A batch with no row
-    of a known tile launches nothing."""
-    _mark("start")
-    lengths = torch.as_tensor(lengths).to(torch.int32)
-    check_cuda_batch("per_tile_qual_sums", [("qual", qual)],
-                     [("lengths", lengths)])
-    n, L = qual.shape
-    offset = int(offset)
-    if not -(1 << 31) <= offset < (1 << 31):
-        raise ValueError("per_tile_qual_sums: offset %d is not an int32"
-                         % offset)
-    _mark("checks")
-    unique_tiles, dst, rows = _tile_rows(np.asarray(tiles), n, unique_tiles,
-                                         n_records)
-    unique_tiles = np.asarray(unique_tiles).astype(np.int64)
-    if not (L and (dst < rows).any()):
+    of a known tile launches nothing. Each step is a `bs.tiles.<step>`
+    span."""
+    with tracing.span("bs.tiles.checks"):
+        lengths = torch.as_tensor(lengths).to(torch.int32)
+        check_cuda_batch("per_tile_qual_sums", [("qual", qual)],
+                         [("lengths", lengths)])
+        n, L = qual.shape
+        offset = int(offset)
+        if not -(1 << 31) <= offset < (1 << 31):
+            raise ValueError("per_tile_qual_sums: offset %d is not an int32"
+                             % offset)
+    with tracing.span("bs.tiles.tile_rows"):
+        unique_tiles, dst, rows = _tile_rows(np.asarray(tiles), n,
+                                             unique_tiles, n_records)
+        unique_tiles = np.asarray(unique_tiles).astype(np.int64)
+        known = bool(L and (dst < rows).any())
+    if not known:
         zeros = np.zeros((rows, L), np.float32)
         return unique_tiles, zeros, zeros.copy()
-    _mark("tile_rows")
-    dst = torch.from_numpy(dst).to(qual.device)
-    _mark("upload")
-    out = torch.empty((2, rows, L), dtype=torch.float32, device=qual.device)
-    _mark("alloc")
-    _tile_sums_launch(qual, lengths, dst, out, offset)
-    _mark("launch")
-    host = out.cpu().numpy()
-    _mark("download")
+    with tracing.span("bs.tiles.upload"):
+        dst = torch.from_numpy(dst).to(qual.device)
+    with tracing.span("bs.tiles.alloc"):
+        out = torch.empty((2, rows, L), dtype=torch.float32,
+                          device=qual.device)
+    with tracing.span("bs.tiles.launch"):
+        _tile_sums_launch(qual, lengths, dst, out, offset)
+    with tracing.span("bs.tiles.download"):
+        host = out.cpu().numpy()
     return unique_tiles, host[0], host[1]
 
 

@@ -36,7 +36,7 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, tracing
 
 
 class OverlappedIngest:
@@ -111,7 +111,7 @@ class OverlappedIngest:
             self._pinned = [torch.empty(self.csize, dtype=torch.uint8,
                                         pin_memory=True) for _ in range(2)]
             self._pinned_done: List[Optional[torch.cuda.Event]] = [None, None]
-            self._stage = 0
+            self._stage_at = 0  # the staging buffer to fill next
 
     # -- producer side --------------------------------------------------------
     def acquire(self) -> np.ndarray:
@@ -134,20 +134,26 @@ class OverlappedIngest:
         oldest first. `owned=True` marks `buf` as an acquire()d buffer to
         recycle after sync; pass owned=False for caller-owned read-only
         arrays (never written again during the run)."""
+        tracing.count("feed.chunks")
+        tracing.count("feed.staged_bytes", buf.size)
         if self.device.type == "cuda":
-            dev, done = self._upload(buf), torch.cuda.Event()
+            k = self._stage(buf)
         else:
-            with warnings.catch_warnings():
+            with tracing.span("bs.feed.stage"), warnings.catch_warnings():
                 # read-only mmap slices: the step only reads the tensor
                 warnings.simplefilter("ignore", UserWarning)
-                dev, done = torch.from_numpy(np.ascontiguousarray(buf)), None
-        if self.row_bytes:
-            dev = dev.view(-1, self.row_bytes)
-        out = self.step(dev, int(n_valid))
-        if done is not None:
-            done.record(torch.cuda.current_stream(self.device))
-            self._dev_done[self._slot] = done
-            self._slot = (self._slot + 1) % len(self._dev)
+                dev = torch.from_numpy(np.ascontiguousarray(buf))
+        with tracing.span("bs.feed.dispatch"):
+            done = None
+            if self.device.type == "cuda":
+                dev, done = self._upload(k, buf.size), torch.cuda.Event()
+            if self.row_bytes:
+                dev = dev.view(-1, self.row_bytes)
+            out = self.step(dev, int(n_valid))
+            if done is not None:
+                done.record(torch.cuda.current_stream(self.device))
+                self._dev_done[self._slot] = done
+                self._slot = (self._slot + 1) % len(self._dev)
         self._inflight.append((meta, out, buf if owned else None, done))
         ready, self._early = self._early, []
         while len(self._inflight) > self.depth:
@@ -162,19 +168,27 @@ class OverlappedIngest:
         return ready
 
     # -- internals ----------------------------------------------------------
-    def _upload(self, buf: np.ndarray) -> torch.Tensor:
-        """Stage `buf` into pinned memory, upload it on the copy stream into
-        the current device slot, and make the compute stream wait for it."""
+    def _stage(self, buf: np.ndarray) -> int:
+        """Copy `buf` into the next pinned staging buffer, once that
+        buffer's last upload has finished; returns its index."""
         n = buf.size
         if n > self.csize:
             raise ValueError("chunk of %d bytes exceeds csize %d"
                              % (n, self.csize))
-        k = self._stage
-        self._stage ^= 1
+        k = self._stage_at
+        self._stage_at ^= 1
         if self._pinned_done[k] is not None:
-            self._pinned_done[k].synchronize()  # its last upload finished
+            with tracing.span("bs.feed.wait"):
+                self._pinned_done[k].synchronize()  # its last upload finished
+        with tracing.span("bs.feed.stage"):
+            np.copyto(self._pinned[k][:n].numpy(), buf.reshape(-1))
+        return k
+
+    def _upload(self, k: int, n: int) -> torch.Tensor:
+        """Upload the first `n` bytes of pinned staging buffer `k` on the
+        copy stream into the current device slot, and make the compute
+        stream wait for it."""
         pinned = self._pinned[k][:n]
-        np.copyto(pinned.numpy(), buf.reshape(-1))
         dev = self._dev[self._slot][:n]
         copied = torch.cuda.Event()
         with torch.cuda.stream(self._copy_stream):
@@ -189,8 +203,9 @@ class OverlappedIngest:
 
     def _sync_oldest(self) -> Tuple[Any, Any]:
         meta, out, buf, done = self._inflight.popleft()
-        if done is not None:
-            done.synchronize()
+        with tracing.span("bs.feed.wait"):
+            if done is not None:
+                done.synchronize()
         if buf is not None:
             self._free.append(buf)
         return meta, out

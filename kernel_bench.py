@@ -75,7 +75,7 @@ compare two commits on one card). Shapes:
   kernel as its launch, or a tree's fill and launch, its whole call and
   its one PyTorch call, torch.mm of the one-hot tile matrix, beside it),
   checked equal to its plain version where the tree has one; the host ms
-  of each step of a tiles call as the call marks it
+  of each step of a tiles call, its `bs.tiles.<step>` spans
   (`tiles_call_split_ms`); kmer_counts at k = 1, 4 and 8 on random and
   poly-G rows at 4,096 x 256, 65,536 x 256 and 32,768 x 1,024, and
   demux_assign on the 4 x 8, 8 x 48, 4,096 x 16 and 384 x 32 barcode
@@ -852,31 +852,39 @@ def _cli_op_launches(cs, reads):
 def _tiles_split(cs, head, repeats=20):
     """Host ms of one per_tile_qual_sums call on the card (the first 4,096
     reads of the 1M-read file as the CLI pads them), medians over
-    `repeats`: the whole call and, in a tree whose call marks its steps
-    (tiles.step_marks), each step as the call itself runs it, with no
-    synchronize added (the launch and the copies only queue their work;
-    `wait` is the synchronize that ends the call)."""
+    `repeats`: the whole call, timed with tracing off, and, in a tree whose
+    call opens a span a step (`bs.tiles.<step>`, read from
+    tracing.capture()), each step as the call itself runs it, from repeats
+    of their own under capture() (whose bookkeeping the whole call would
+    otherwise pay), with no synchronize added (the launch and the copies
+    only queue their work; `download` is the copy that ends the call)."""
     import statistics
     import time
 
+    from blazeseq_tpu_torch import tracing
     from blazeseq_tpu_torch.ops import tiles
 
     tl, _, qual, lengths, n_records = head
-    marked = hasattr(tiles, "step_marks")
+
+    def call():
+        tiles.per_tile_qual_sums(tl, qual, lengths, 33, n_records=n_records)
+
     times = {}
     for _ in range(repeats + 1):
-        if marked:
-            tiles.step_marks = []
         t0 = time.perf_counter()
-        tiles.per_tile_qual_sums(tl, qual, lengths, 33, n_records=n_records)
-        t1 = time.perf_counter()
-        steps = [("whole_call", t1 - t0)]
-        if marked:
-            marks, tiles.step_marks = tiles.step_marks, None
-            steps += [(name, t - marks[k][1])
-                      for k, (name, t) in enumerate(marks[1:])]
-        for name, dt in steps:
-            times.setdefault(name, []).append(1e3 * dt)
+        call()
+        times.setdefault("whole_call", []).append(
+            1e3 * (time.perf_counter() - t0))
+    capture = getattr(tracing, "capture", None)
+    prefix = "bs.tiles."
+    for _ in range(repeats + 1 if capture else 0):
+        with capture() as tr:
+            before = dict(tr.times)
+            call()
+        for name, t in tr.times.items():
+            if name.startswith(prefix):
+                times.setdefault(name[len(prefix):], []).append(
+                    1e3 * (t - before.get(name, 0.0)))
     return {name: statistics.median(v[1:]) for name, v in times.items()}
 
 
