@@ -523,10 +523,11 @@ class QCModel:
             hv = self._adaptive_hist_vals(data) if adaptive else ()
         uqc = self._device_uqc(lay, self.max_read_len, hist_vals=hv)
 
-        # Full-size chunks are read-only slices of the mapping; the device
-        # works `depth` chunks behind the dispatch front. A chunk's verdict
-        # arrives late: chunks dispatched after a failure are discarded and
-        # the next tier resumes from the failed chunk's start.
+        # Every chunk is a read-only slice of the mapping, the short last
+        # one cut to its whole records; the device works `depth` chunks
+        # behind the dispatch front. A chunk's verdict arrives late: chunks
+        # dispatched after a failure are discarded and the next tier
+        # resumes from the failed chunk's start.
         ing = OverlappedIngest(uqc, csize, row_bytes=lay.rs,
                                device=self.device)
         fail_pos = None
@@ -554,15 +555,8 @@ class QCModel:
             if n_valid == 0:
                 break  # trailing partial record: host tail
             tracing.count("qc.dispatched_bytes", n_valid)
-            if b - pos == csize:
-                consume(ing.feed(data[pos:b], n_valid, meta=(pos, n_valid),
-                                 owned=False))
-            else:
-                buf = ing.acquire()
-                with tracing.span("bs.feed.fill"):
-                    buf[: b - pos] = data[pos:b]
-                    buf[b - pos:] = 0
-                consume(ing.feed(buf, n_valid, meta=(pos, n_valid)))
+            consume(ing.feed(data[pos:pos + n_valid], n_valid,
+                             meta=(pos, n_valid), owned=False))
             pos += n_valid
         consume(ing.drain())
         # fail_pos and pos are proven record boundaries: every accepted

@@ -15,7 +15,10 @@ step, and records a done event. A staging buffer is reused only after its
 upload event completed, and a device buffer only after the step that read
 it (the copy stream waits on that step's event). A pageable array (such as
 a read-only mmap slice) could not be uploaded asynchronously, which is why
-the staging copy exists.
+the staging copy exists. A large chunk's staging copy is split into
+contiguous slices copied at once by a small pool of threads (`stage_copy`):
+one thread's copy out of a file mapping is several times slower than the
+host-to-device link.
 
 On CPU every step runs synchronously on a tensor that views the caller's
 array.
@@ -29,14 +32,77 @@ re-enters rotation.
 
 from __future__ import annotations
 
+import os
+import threading
 import warnings
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import native, tracing
+
+# No slice of a split staging copy is smaller than this: below it, handing
+# a slice to another thread costs more than the copy saves. A chunk under
+# twice this size is copied by the calling thread alone.
+STAGE_SLICE_FLOOR = 8 << 20
+# the most threads one staging copy takes, the calling thread included
+STAGE_MAX_THREADS = 8
+
+_pool: Optional[ThreadPoolExecutor] = None
+_pool_lock = threading.Lock()
+
+
+def _stage_threads() -> int:
+    """Threads a staging copy may take: the cores this process may run
+    on, at most STAGE_MAX_THREADS."""
+    return min(len(os.sched_getaffinity(0)), STAGE_MAX_THREADS)
+
+
+def _stage_pool() -> ThreadPoolExecutor:
+    """The process's staging-copy workers, made at first use; a worker
+    thread starts only when a copy needs one."""
+    global _pool
+    with _pool_lock:
+        if _pool is None:
+            _pool = ThreadPoolExecutor(max_workers=STAGE_MAX_THREADS - 1,
+                                       thread_name_prefix="bs-stage")
+        return _pool
+
+
+def _copy_slice(dst: np.ndarray, src: np.ndarray, a: int, b: int) -> None:
+    # np.copyto releases the interpreter lock while it copies
+    np.copyto(dst[a:b], src[a:b])
+
+
+def stage_copy(dst: np.ndarray, src: np.ndarray) -> int:
+    """Copy the 1-D array `src` into `dst`, of the same size, and return
+    the number of threads that copied it.
+
+    At least 2 * STAGE_SLICE_FLOOR bytes are split into as many
+    contiguous slices as `_stage_threads()` allows, none under the floor;
+    the calling thread copies the first and the pool the others. Every
+    slice has finished when this returns, also when one raised, and the
+    first error raised is raised here."""
+    n = src.size
+    parts = min(_stage_threads(), n // STAGE_SLICE_FLOOR)
+    if parts < 2:
+        np.copyto(dst, src)
+        return 1
+    # page-sized slice starts: no two threads store into one page
+    step = -(-n // (parts * 4096)) * 4096
+    pool = _stage_pool()
+    futs = [pool.submit(_copy_slice, dst, src, a, min(a + step, n))
+            for a in range(step, n, step)]
+    try:
+        _copy_slice(dst, src, 0, step)
+    finally:
+        wait(futs)
+    for f in futs:
+        f.result()
+    return len(futs) + 1
 
 
 class OverlappedIngest:
@@ -181,7 +247,10 @@ class OverlappedIngest:
             with tracing.span("bs.feed.wait"):
                 self._pinned_done[k].synchronize()  # its last upload finished
         with tracing.span("bs.feed.stage"):
-            np.copyto(self._pinned[k][:n].numpy(), buf.reshape(-1))
+            threads = stage_copy(self._pinned[k][:n].numpy(),
+                                 buf.reshape(-1))
+        if threads > 1:
+            tracing.count("feed.split_chunks")
         return k
 
     def _upload(self, k: int, n: int) -> torch.Tensor:

@@ -4,7 +4,7 @@ source tree or several in turn.
     python3 kernel_bench.py [--tree DIR ...] [--seed N] [--ragged-path]
                             [--sweep]
                             [--only device_parse|merge|merge_kernel|cli_ops|
-                                    kmer_k8]
+                                    kmer_k8|stage]
 
 Each DIR (default: this script's directory) holds a `blazeseq_tpu_torch`
 package; its kernels are built from its own sources and timed in a fresh
@@ -88,6 +88,19 @@ compare two commits on one card). Shapes:
   at k = 4 and 8, 4,096 x 256 and 32,768 x 1,024, built alone with
   switches that drop the other blocks' pieces, the rounds' cluster
   barriers or the flush, and with bin owners fixed at 1 to 64 (`_kmer_k8`);
+* the feed's staging copy (`--only stage`, this section alone; no kernel
+  is built): one 256 MiB chunk of a warm file (written just before, so the
+  read is from the page cache) from a fresh read-only mapping, as
+  `run_file_device` maps its file each call, into pinned memory, split
+  into its page faults (`faults`: one byte a page read, on a fresh
+  mapping) and its memcpy (`memcpy`: the copy again once every page is
+  mapped), on one thread (`one_thread*`) and, where the tree has
+  `parallel/ingest.py::stage_copy`, split over its threads (`split*`);
+  beside them two alternatives on as many threads
+  (`populate_then_split`: MADV_POPULATE_READ on each slice, then the
+  copy; `pread_split`: each thread reads its slice of the file into
+  pinned memory); each with the process's minor faults a chunk, and the
+  host's usable cores (`_stage_split`);
 * the CUDA kernel launches of one `run_file(align_to, adapters,
   duplicates, quartiles)` batch, from torch.profiler: the launches of
   runs over 1 and over 3 padded batches of chip_smoke's planted corpus,
@@ -201,6 +214,9 @@ def _one_tree(tree, seed, ragged_path=False, sweep=False, only=None):
 
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_bench.py needs a CUDA card")
+    if only == "stage":
+        return dict(tree=os.path.relpath(tree, HERE),
+                    stage=_stage_split(seed))
     _kernels.load()
     out = dict(tree=os.path.relpath(tree, HERE),
                package=os.path.dirname(nw_ops.__file__))
@@ -946,6 +962,128 @@ def _cli_op_sets(cs, seed):
     return out
 
 
+# --only stage: the chunk the throughput corpus's uniform tier stages,
+# 256 MiB cut to whole 219-byte records; the rows that copy a whole chunk
+STAGE_CHUNK = (256 << 20) // 219 * 219
+COPIES = ("one_thread", "one_thread_memcpy", "split", "split_memcpy",
+          "populate_then_split", "pread_split")
+
+
+def _stage_split(seed, trials=7):
+    """Wall ms, GB/s and minor faults (getrusage, every thread) of one
+    STAGE_CHUNK's staging copy into pinned memory from a fresh read-only
+    mapping (the tree's MmapReader) of a warm file, and of its parts (see
+    the module docstring); medians of `trials`."""
+    import resource
+    import statistics
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from blazeseq_tpu_torch.io.readers import MmapReader
+    from blazeseq_tpu_torch.parallel import ingest
+
+    n = STAGE_CHUNK
+    pinned = torch.empty(n, dtype=torch.uint8, pin_memory=True).numpy()
+    pinned[:] = 0  # every page of the destination mapped before timing
+    split = getattr(ingest, "stage_copy", None)
+    threads = (ingest._stage_threads() if split
+               else min(len(os.sched_getaffinity(0)), 8))
+    pool = ThreadPoolExecutor(threads)
+    step = -(-n // (threads * 4096)) * 4096
+
+    def touch(k):
+        # one read a page, on k threads, faults each page in (the kernel
+        # maps its neighbours in the page cache with it, as in a copy)
+        step = -(-n // (k * 4096)) * 4096
+
+        def run(src, _mm):
+            return max(pool.map(lambda a: int(src[a:a + step:4096].max()),
+                                range(0, n, step)))
+        return run
+
+    def populate(src, mm):
+        # the alternatives: the kernel maps each thread's slice in one call
+        # (MADV_POPULATE_READ, Linux 5.14), then the split copy; or each
+        # thread reads its slice from the file into pinned memory
+        list(pool.map(lambda a: mm.madvise(22, a, min(step, n - a)),
+                      range(0, n, step)))
+        list(pool.map(lambda a: np.copyto(pinned[a:a + step],
+                                          src[a:a + step]),
+                      range(0, n, step)))
+
+    def pread(_src, _mm):
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            list(pool.map(lambda a: os.preadv(fd, [pinned[a:a + step]], a),
+                          range(0, n, step)))
+        finally:
+            os.close(fd)
+
+    def timed(fn, src, mm):
+        f0 = resource.getrusage(resource.RUSAGE_SELF).ru_minflt
+        t0 = time.perf_counter()
+        fn(src, mm)
+        t1 = time.perf_counter()
+        return (t1 - t0) * 1e3, \
+            resource.getrusage(resource.RUSAGE_SELF).ru_minflt - f0
+
+    def one(src, _mm):
+        np.copyto(pinned, src)
+
+    def par(src, _mm):
+        used = split(pinned, src)
+        if used != threads:
+            raise AssertionError("stage_copy took %d threads of %d"
+                                 % (used, threads))
+
+    plans = {"one_thread": [("one_thread", one)],
+             "one_thread_parts": [("one_thread_faults", touch(1)),
+                                  ("one_thread_memcpy", one)]}
+    if split:
+        plans["split"] = [("split", par)]
+        plans["split_parts"] = [("split_faults", touch(threads)),
+                                ("split_memcpy", par)]
+    plans["populate_then_split"] = [("populate_then_split", populate)]
+    plans["pread_split"] = [("pread_split", pread)]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "chunk.bin")
+        want = np.random.default_rng([seed, 11]).integers(
+            0, 256, n, dtype=np.uint8)
+        want.tofile(path)
+        rows = collections.defaultdict(list)
+        out_err = {}
+        for _ in range(trials):
+            for plan in plans.values():
+                reader = MmapReader(path)  # a fresh mapping
+                src = reader.as_array()[:n]
+                for name, fn in plan:
+                    pinned[:] = 0
+                    try:
+                        ms, flt = timed(fn, src, reader._mm)
+                    except OSError as e:  # an alternative the host lacks
+                        out_err[name] = repr(e)
+                        continue
+                    if name in COPIES and not np.array_equal(pinned, want):
+                        raise AssertionError("%s: staged bytes differ"
+                                             % name)
+                    rows[name].append((ms, flt))
+                del src, reader
+    pool.shutdown()
+    out = dict(chunk_bytes=n, threads=threads, trials=trials,
+               usable_cores=len(os.sched_getaffinity(0)),
+               cpu_count=os.cpu_count(), errors=out_err)
+    for name, got in rows.items():
+        ms = statistics.median(m for m, _ in got)
+        out[name] = dict(ms=ms, gb_per_s=n / ms / 1e6,
+                         ms_range=[min(m for m, _ in got),
+                                   max(m for m, _ in got)],
+                         minor_faults=statistics.median(f for _, f in got))
+    return out
+
+
 # --only kmer_k8: csrc/kmer.cu built alone with its measurement switches
 # (name, BS_KMER_SKIP, BS_KMER_OWNERS); the owner counts of the sweep
 KMER_SWITCHES = (("library", 0, 0), ("skip_other_pieces", 1, 0),
@@ -1157,7 +1295,7 @@ def main(argv=None):
                     "size")
     ap.add_argument("--only", choices=("device_parse", "merge",
                                        "merge_kernel", "cli_ops",
-                                       "kmer_k8"),
+                                       "kmer_k8", "stage"),
                     help="time only this section")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)

@@ -3,13 +3,28 @@ ingest.py): the protocol cases of tests/test_ingest.py on the CPU path
 (dispatch-order delivery, buffer recycling, early-sync stashing), the
 constructor's checks, and the CUDA path (pinned staging, copy stream,
 events) on the card, which skips where there is no CUDA device.
+
+The staging copy (`stage_copy`), called on numpy arrays with the thread
+count set, so that it holds on a host of any core count: byte-equal to
+np.copyto around its split threshold, from a read-only mapping at an
+unaligned offset; one thread below twice its floor; a worker's error
+reaches the caller once every slice has finished; callers on many threads
+at once.
 """
+
+import mmap
+import sys
+import threading
+import time
 
 import numpy as np
 import pytest
 import torch
 
+from blazeseq_tpu_torch.parallel import ingest
 from blazeseq_tpu_torch.parallel.ingest import OverlappedIngest
+
+FLOOR = ingest.STAGE_SLICE_FLOOR
 
 
 def _sum_step(c, nv):
@@ -119,3 +134,106 @@ def test_cuda_feed_matches_host_sums_on_card(n_buffers):
     for k, out in got:
         rows = csize // 1024 - k
         assert int(out) == int(chunks[k][: rows * 1024].astype(np.int64).sum())
+
+
+# around the split threshold (twice the floor), and sizes that 3 threads
+# do not divide
+STAGE_SIZES = [0, 1, 2 * FLOOR - 1, 2 * FLOOR, 2 * FLOOR + 1,
+               3 * FLOOR + 7, 5 * FLOOR + 1]
+
+
+@pytest.fixture(scope="module")
+def mapped(tmp_path_factory):
+    """A read-only mapping of random bytes, 13 bytes longer than the
+    largest size."""
+    p = tmp_path_factory.mktemp("stage") / "bytes.bin"
+    np.random.default_rng(3).integers(
+        0, 256, max(STAGE_SIZES) + 13, dtype=np.uint8).tofile(p)
+    with open(p, "rb") as f:
+        mm = mmap.mmap(f.fileno(), 0, prot=mmap.PROT_READ)
+    yield np.frombuffer(mm, np.uint8)
+
+
+@pytest.mark.parametrize("threads", [1, 3])
+@pytest.mark.parametrize("at", [0, 13])
+@pytest.mark.parametrize("n", STAGE_SIZES)
+def test_stage_copy_equals_copyto(mapped, monkeypatch, n, at, threads):
+    monkeypatch.setattr(ingest, "_stage_threads", lambda: threads)
+    src = mapped[at:at + n]
+    assert not src.flags.writeable
+    dst = np.zeros(n, np.uint8)
+    want = np.empty(n, np.uint8)
+    np.copyto(want, src)
+    used = ingest.stage_copy(dst, src)
+    assert np.array_equal(dst, want)
+    assert used == max(1, min(threads, n // FLOOR))
+
+
+def test_stage_copy_below_twice_the_floor_takes_one_thread(monkeypatch):
+    def no_pool():
+        raise AssertionError("a small copy reached the pool")
+
+    monkeypatch.setattr(ingest, "_stage_threads", lambda: 8)
+    monkeypatch.setattr(ingest, "_stage_pool", no_pool)
+    src = np.arange(2 * FLOOR - 1, dtype=np.uint64).astype(np.uint8)
+    dst = np.zeros_like(src)
+    assert ingest.stage_copy(dst, src) == 1
+    assert np.array_equal(dst, src)
+
+
+def test_stage_copy_raises_a_workers_error_after_every_slice(monkeypatch):
+    # slices start at 0, s, 2s, 3s: the last raises at once, the second
+    # sleeps first; the error may reach the caller only after the slow one
+    # has finished its copy
+    monkeypatch.setattr(ingest, "_stage_threads", lambda: 4)
+    n = 4 * FLOOR
+    copy = ingest._copy_slice
+
+    def slice_(dst, src, a, b):
+        if a == 3 * FLOOR:
+            raise OSError("slice at %d" % a)
+        if a == FLOOR:
+            time.sleep(0.3)
+        copy(dst, src, a, b)
+
+    monkeypatch.setattr(ingest, "_copy_slice", slice_)
+    src = np.random.default_rng(4).integers(0, 256, n, dtype=np.uint8)
+    dst = np.zeros(n, np.uint8)
+    with pytest.raises(OSError, match="slice at %d" % (3 * FLOOR)):
+        ingest.stage_copy(dst, src)
+    assert np.array_equal(dst[:3 * FLOOR], src[:3 * FLOOR])
+    assert not dst[3 * FLOOR:].any()
+
+
+def test_stage_copy_from_many_threads_at_once(monkeypatch):
+    # more callers than cores share the one pool; each copy must come out
+    # whole
+    monkeypatch.setattr(ingest, "_stage_threads", lambda: 4)
+    monkeypatch.setattr(ingest, "STAGE_SLICE_FLOOR", 4096)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    bad = []
+
+    def caller(k):
+        rng = np.random.default_rng(k)
+        for _ in range(20):
+            n = int(rng.integers(0, 64 << 10))
+            src = rng.integers(0, 256, n, dtype=np.uint8)
+            dst = np.zeros(n, np.uint8)
+            try:
+                ingest.stage_copy(dst, src)
+            except Exception as e:  # noqa: BLE001 - reported below
+                bad.append((k, repr(e)))
+            if not np.array_equal(dst, src):
+                bad.append(k)
+
+    try:
+        ths = [threading.Thread(target=caller, args=(k,)) for k in range(16)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(60)
+        assert not any(th.is_alive() for th in ths)
+    finally:
+        sys.setswitchinterval(interval)
+    assert bad == []

@@ -142,6 +142,11 @@ def _corpus(name):
     if name == "trailing_partial":
         # the last record loses its final newline: not a whole rs block
         return _uniform(2500, 70)[:-1], ".fastq", 1, 128
+    if name == "uniform_short_tail":
+        # three full 1 MiB chunks of 176-byte records, then a chunk of four
+        # whole records, then the last record without its final newline
+        rows = (1 << 20) // 176
+        return _uniform(3 * rows + 5, 80)[:-1], ".fastq", 1, 128
     if name == "long_reads":
         return _uniform(800, 300), ".fastq", 1, 128
     if name == "empty":
@@ -164,7 +169,8 @@ def _corpus(name):
 
 
 CORPORA = ["clean_multichunk", "nonuniform", "gzip", "gzip_nonuniform",
-           "trailing_partial", "long_reads", "empty", "binned_peek",
+           "trailing_partial", "uniform_short_tail", "long_reads", "empty",
+           "binned_peek",
            "binned_overflow", "full_range", "semi_multichunk",
            "semi_length_blocks", "semi_wide_id", "semi_ragged_tail",
            "uniform_then_varid", "ragged_multichunk", "ragged_short_records",
@@ -177,7 +183,8 @@ CORPORA = ["clean_multichunk", "nonuniform", "gzip", "gzip_nonuniform",
 TIERS = {
     "clean_multichunk": {"uniform"}, "nonuniform": {"ragged"},
     "gzip": {"uniform"}, "gzip_nonuniform": {"ragged"},
-    "trailing_partial": {"uniform", "host"}, "long_reads": {"uniform"},
+    "trailing_partial": {"uniform", "host"},
+    "uniform_short_tail": {"uniform", "host"}, "long_reads": {"uniform"},
     "empty": set(), "binned_peek": {"uniform"},
     "binned_overflow": {"uniform"}, "full_range": {"uniform"},
     "semi_multichunk": {"semi"}, "semi_length_blocks": {"semi"},
@@ -221,6 +228,8 @@ def check_corpus(tmp_path, name, ref_entry):
     if name in ("clean_multichunk", "semi_multichunk", "semi_length_blocks",
                 "ragged_multichunk"):
         assert max(tiers.values()) > 1, tiers
+    if name == "uniform_short_tail":
+        assert (tiers["uniform"], tiers["host"]) == (4, 1), tiers
     if name.startswith(("midfile", "inflight")):
         assert tiers["host"] > 0, tiers
     if name.startswith(("midfile", "inflight", "ragged_invalid")):

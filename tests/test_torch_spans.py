@@ -10,8 +10,10 @@ still count it.
 
 The paths, on the CPU inside `capture()`: run_file_device on a uniform
 file, on a uniform head before ids of varying width (a proof fails), and
-on a file whose Phred values leave the head's peek (one re-run); run_file
-with FastQC's panels. Every report equals the one tracing off gives.
+on a file whose Phred values leave the head's peek (one re-run); on a uniform
+file whose last chunk holds a few records and a partial one (on the card
+too, at 256 MiB chunks); run_file with FastQC's panels. Every report
+equals the one tracing off gives.
 """
 
 from __future__ import annotations
@@ -240,9 +242,20 @@ def test_the_bound_drops_spans_and_counts_them(fresh, monkeypatch):
     assert r["spans"]["bs.run_file"]["calls"] == 1
 
 
-@pytest.mark.parametrize("case", ["uniform", "failed_proof", "rerun"])
+def _short_tail(full_chunks, chunk_bytes):
+    """Uniform 176-byte records: `full_chunks` whole chunks of
+    `chunk_bytes`, a chunk of four whole records, then the last record
+    without its final newline (the host route's)."""
+    block = np.frombuffer(_uniform(20_000, 80), np.uint8)  # 5-digit ids
+    n = full_chunks * (chunk_bytes // 176) + 5
+    return np.resize(block, n * 176).tobytes()[:-1]
+
+
+@pytest.mark.parametrize("case", ["uniform", "short_tail", "failed_proof",
+                                  "rerun"])
 def test_run_file_device_spans_and_counters(tmp_path, fresh, case):
     raw = {"uniform": lambda: _uniform(8000, 80),
+           "short_tail": lambda: _short_tail(3, 1 << 20),
            "failed_proof": lambda: _uniform(10_000, 60) + _var_ids(3000, 60,
                                                                    4),
            "rerun": _outside_peek}[case]()
@@ -262,10 +275,22 @@ def test_run_file_device_spans_and_counters(tmp_path, fresh, case):
     fed, thrown = c["qc.dispatched_bytes"], c.get("qc.discarded_bytes", 0)
     assert c["feed.chunks"] == spans["bs.feed.dispatch"]["calls"]
     assert c["feed.staged_bytes"] >= fed > 0
-    if case == "uniform":
+    if case in ("uniform", "short_tail"):
         assert thrown == 0 and "qc.failed_proofs" not in c
         assert "qc.reruns" not in c
         assert c["feed.chunks"] == model.tier_chunks["uniform"] > 1
+        # every chunk, the short last one too, is fed as the mapping's
+        # bytes: nothing filled, nothing staged past the records
+        assert "bs.feed.fill" not in spans
+        assert c["feed.staged_bytes"] == fed
+        # the CPU path stages nothing, so no copy is split
+        assert "feed.split_chunks" not in c
+        if case == "short_tail":
+            assert model.tier_chunks["uniform"] == 4
+            assert model.tier_chunks["host"] == 1
+            _same_report(on, QCModel(quality_schema="sanger",
+                                     max_read_len=128,
+                                     device="cpu").run_file(p))
     elif case == "failed_proof":
         assert c["qc.failed_proofs"] >= 1 and 0 < thrown < fed
         assert "bs.feed.fill" in spans  # the semi tier's normalizer
@@ -275,6 +300,33 @@ def test_run_file_device_spans_and_counters(tmp_path, fresh, case):
         # the first pass fed what the second fed, and was thrown away
         assert 2 * thrown == fed
         assert on.qual_hist[8] == 40 * 100
+
+
+def test_run_file_device_short_tail_on_card(tmp_path, fresh):
+    """The short last uniform chunk at 256 MiB chunks on the card: the
+    report equals the host route's, the feed stages exactly the records it
+    dispatches, and every full chunk's staging copy is split."""
+    import torch
+
+    from blazeseq_tpu_torch.parallel import ingest
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: pinned staging and kernel B")
+    p = _write(tmp_path, _short_tail(2, 256 << 20))
+    model = QCModel(quality_schema="sanger", max_read_len=128)
+    off = model.run_file_device(p, chunk_mb=256)
+    with tracing.capture() as t:
+        on = model.run_file_device(p, chunk_mb=256)
+    _same_report(on, off)
+    _same_report(on, QCModel(quality_schema="sanger",
+                             max_read_len=128).run_file(p))
+    assert (model.tier_chunks["uniform"], model.tier_chunks["host"]) == (3, 1)
+    (r,) = t.requests()
+    c = r["counters"]
+    assert "bs.feed.fill" not in r["spans"]
+    assert c["feed.staged_bytes"] == c["qc.dispatched_bytes"]
+    split = 2 if ingest._stage_threads() > 1 else 0
+    assert c.get("feed.split_chunks", 0) == split
 
 
 def test_run_file_spans_once_a_batch(tmp_path, fresh):
